@@ -1,0 +1,76 @@
+"""Trained-GP state, its npz checkpoint, and the weight carry from the JAX
+package.
+
+Port of ``scasml_gp_tpu/gp/state.py``.  ``save_state`` writes and
+``load_state`` reads the same npz layout as the JAX package (one array per
+field), so the port evaluates a surrogate trained there; ``state_from_numpy``
+does the same from a dict of numpy arrays.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+FIELDS = ("x_dom", "x_bdy", "right_vector", "sol", "gamma", "loss_history")
+
+
+@dataclasses.dataclass(eq=False)
+class GPState:
+    """Everything needed to evaluate the trained GP posterior."""
+
+    x_dom: torch.Tensor         # (N, d+1) training interior points
+    x_bdy: torch.Tensor         # (Nb, d+1) training boundary points
+    right_vector: torch.Tensor  # (4N+Nb,) representer weights
+    sol: torch.Tensor           # (3N,) final (z1, z3, z5) unknowns
+    gamma: torch.Tensor         # (3,) or () kernel precisions (gs, gt, gr)
+    loss_history: torch.Tensor  # (steps+1,) Newton loss trace
+    _fused: Optional[object] = dataclasses.field(default=None, repr=False)
+
+    @property
+    def n_domain(self) -> int:
+        return self.x_dom.shape[0]
+
+    @property
+    def n_boundary(self) -> int:
+        return self.x_bdy.shape[0]
+
+    @property
+    def dim(self) -> int:
+        return self.x_dom.shape[1] - 1
+
+    def fused_inputs(self):
+        """The fused kernel's stacked inputs, built on first use and cached
+        (the state's tensors are never modified in place)."""
+        if self._fused is None:
+            from scasml_gp_torch.gp.fused_posterior import prepare_inputs
+
+            self._fused = prepare_inputs(
+                self.x_dom, self.x_bdy, self.right_vector, self.gamma, self.dim
+            )
+        return self._fused
+
+
+def state_from_numpy(arrays: dict, device) -> GPState:
+    """GPState on ``device`` from numpy arrays keyed by field name (the JAX
+    package's parameters, e.g. ``{k: np.asarray(v) for k, v in
+    jax_state._asdict().items()}``)."""
+    missing = [k for k in FIELDS if k not in arrays]
+    if missing:
+        raise KeyError(f"state arrays lack {missing}")
+    return GPState(**{
+        k: torch.tensor(np.asarray(arrays[k], np.float32), device=device)
+        for k in FIELDS
+    })
+
+
+def save_state(path: str, state: GPState) -> None:
+    np.savez(path, **{k: getattr(state, k).detach().cpu().numpy() for k in FIELDS})
+
+
+def load_state(path: str, device="cpu") -> GPState:
+    with np.load(path) as data:
+        return state_from_numpy({k: data[k] for k in FIELDS}, device)
