@@ -9,9 +9,11 @@ checked against; the port never imports it.
 - ``gp``         closed-form RBF derivative kernels, Gram assembly, the
                  equilibrated float32 Cholesky, damped Newton, and the
                  posterior (plain PyTorch on the CPU, the CUDA kernel on a GPU).
-- ``picard``     static schedules, the quadrature multilevel Picard
-                 recursion, MLP and ScaSML.
-- ``utils``      the nvcc build of ``csrc/*.cu``.
+- ``picard``     static schedules, the quadrature and full-history
+                 multilevel Picard recursions, MLP and ScaSML in both variants.
+- ``harness``    the runner CLI and the SimpleUniform / RepeatedExperiment
+                 harnesses; ``gp.tuning`` is the ScaSML-judged kernel tuner.
+- ``utils``      the nvcc build of ``csrc/*.cu``, logging and profiling.
 """
 
 import torch as _torch
@@ -23,18 +25,32 @@ _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 _torch.set_float32_matmul_precision("highest")
 
-from scasml_gp_torch.config import GPConfig, PrecisionPolicy  # noqa: E402
+from scasml_gp_torch.config import (  # noqa: E402
+    GPConfig,
+    MeshConfig,
+    PicardConfig,
+    PrecisionPolicy,
+    RunConfig,
+)
 from scasml_gp_torch.equations import (  # noqa: E402
     Equation,
     GradDependentNonlinear,
     HypercubeGeometry,
 )
 from scasml_gp_torch.gp import GP, GPGradDependentNonlinear, GPState  # noqa: E402
-from scasml_gp_torch.picard import MLP, ScaSML  # noqa: E402
+from scasml_gp_torch.picard import (  # noqa: E402
+    MLP,
+    MLPFullHistory,
+    ScaSML,
+    ScaSMLFullHistory,
+)
 
 __all__ = [
     "GPConfig",
+    "MeshConfig",
+    "PicardConfig",
     "PrecisionPolicy",
+    "RunConfig",
     "Equation",
     "GradDependentNonlinear",
     "HypercubeGeometry",
@@ -42,5 +58,7 @@ __all__ = [
     "GPGradDependentNonlinear",
     "GPState",
     "MLP",
+    "MLPFullHistory",
     "ScaSML",
+    "ScaSMLFullHistory",
 ]

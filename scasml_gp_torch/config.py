@@ -1,16 +1,18 @@
 """Typed configuration for the PyTorch port.
 
 Same fields and defaults as the JAX package's ``scasml_gp_tpu/config.py``
-(``PrecisionPolicy``, ``GPConfig``), with dtype properties returning torch
-dtypes.  Options the port does not run yet are kept as fields so a config
-written for the JAX package loads unchanged; the modules that would read them
-raise ``NotImplementedError`` for any non-default value.
+(``PrecisionPolicy``, ``GPConfig``, ``PicardConfig``, ``MeshConfig``,
+``RunConfig``), with dtype properties returning torch dtypes.  Options the
+port does not run yet are kept as fields so a config written for the JAX
+package loads unchanged (``RunConfig.from_json``); the modules that would
+read them raise ``NotImplementedError`` for any non-default value.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import json
+from typing import Optional, Tuple
 
 import torch
 
@@ -75,3 +77,67 @@ class GPConfig:
     dist_gn_steps: int = 8
     dist_cg_tol: float = 1e-7
     dist_cg_maxiter: int = 500
+
+
+@dataclasses.dataclass(frozen=True)
+class PicardConfig:
+    """Multilevel Picard solver knobs."""
+
+    n: int = 2                      # recursion depth
+    rho: int = 2                    # refinement level (quadrature variant)
+    M: int = 3                      # sample base (full-history variant)
+    variant: str = "quadrature"     # 'quadrature' | 'full_history'
+    batch_chunk: Optional[int] = None  # chunk the test batch to bound memory
+    debug_checks: bool = False      # not ported
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Device-mesh layout ('data' x 'model'); only 1 x 1 is ported."""
+
+    data: int = 1
+    model: int = 1
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return (self.data, self.model)
+
+
+@dataclasses.dataclass(frozen=True)
+class RunConfig:
+    """One experiment run = PDE + dimensions + solvers + harness."""
+
+    equation: str = "GradDependentNonlinear"
+    dim: int = 20                   # spatial dimension d (n_input = d + 1)
+    num_domain: int = 1000          # GP training set
+    num_boundary: int = 200
+    test_domain: int = 1000
+    test_boundary: int = 200
+    seed: int = 1234
+    harness: str = "SimpleUniform"
+    save_path: str = "results"
+    gp: GPConfig = dataclasses.field(default_factory=GPConfig)
+    picard: PicardConfig = dataclasses.field(default_factory=PicardConfig)
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
+    precision: PrecisionPolicy = dataclasses.field(default_factory=PrecisionPolicy)
+    wandb: bool = False
+
+    @property
+    def n_input(self) -> int:
+        return self.dim + 1
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2)
+
+    @staticmethod
+    def from_json(text: str) -> "RunConfig":
+        raw = json.loads(text)
+        for key, cls in (
+            ("gp", GPConfig),
+            ("picard", PicardConfig),
+            ("mesh", MeshConfig),
+            ("precision", PrecisionPolicy),
+        ):
+            if key in raw and isinstance(raw[key], dict):
+                raw[key] = cls(**raw[key])
+        return RunConfig(**raw)

@@ -42,7 +42,14 @@ def regularized_factorization(K: torch.Tensor, nugget: float
     The Gram's derivative blocks differ in scale by O(d^2), so the factored
     matrix is the Jacobi-equilibrated M = D^{-1/2} K_pert D^{-1/2}; then
     K_pert^{-1} = D^{-1/2} M^{-1} D^{-1/2}.  The explicit inverse is needed:
-    the Newton step reads dense blocks of C for its analytic Hessian."""
+    the Newton step reads dense blocks of C for its analytic Hessian.
+
+    M^{-1} comes from ``cholesky_inverse`` (two triangular solves against
+    L), not from the JAX package's Linv^T Linv: at the wide kernels the tuner
+    picks (d=20, N=1000, M's condition number ~1e7) the float32 product of
+    two inexact triangular inverses left the GP at rel-L2 0.117 on an H100,
+    against 0.019 with cholesky_inverse and 0.019 with a float64
+    factorization."""
     K = 0.5 * (K + K.T)
     eye = torch.eye(K.shape[0], dtype=K.dtype, device=K.device)
     K_pert = K + nugget * eye
@@ -50,9 +57,7 @@ def regularized_factorization(K: torch.Tensor, nugget: float
     scale = torch.rsqrt(diag + nugget)
     M = scale[:, None] * K_pert * scale[None, :]
     L = _cholesky_with_retry(M, eye)
-    # potri route: triangular inverse, then Linv^T Linv
-    Linv = torch.linalg.solve_triangular(L, eye, upper=False)
-    Minv = Linv.T @ Linv
+    Minv = torch.cholesky_inverse(L)
     C = scale[:, None] * Minv * scale[None, :]
     return K_pert, C
 

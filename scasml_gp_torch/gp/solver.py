@@ -134,19 +134,8 @@ class GP:
         bdy_g = self.equation.g(x_bdy)[:, 0].to(torch.float32)
         rhs = self.form.rhs_f(x_dom).to(torch.float32)
         gamma = torch.tensor(self.gamma, dtype=torch.float32, device=self.device)
-
-        N = x_dom.shape[0]
-        if sol0 is None:
-            gen = torch.Generator(device=self.device).manual_seed(0)
-            sol0 = torch.randn((3 * N,), generator=gen, device=self.device) * cfg.init_scale
-        sol0 = torch.as_tensor(sol0, dtype=torch.float32, device=self.device)
-        if sol0.shape != (3 * N,):
-            raise ValueError(f"sol0 must have shape ({3 * N},), got {tuple(sol0.shape)}")
-
-        K = gram_matrix(x_dom, x_bdy, gamma, self.d)
-        _, C = regularized_factorization(K, self.nugget)
-        del K
-        out = self._newton_body(C, bdy_g, rhs, steps, cfg.damping, cfg.grad_tol, sol0)
+        out = self._train(x_dom, x_bdy, bdy_g, rhs, gamma, self.nugget, steps,
+                          cfg.damping, cfg.grad_tol, sol0)
         self.state = GPState(
             x_dom=x_dom, x_bdy=x_bdy, right_vector=out.right_vector,
             sol=out.sol, gamma=gamma, loss_history=out.loss_history,
@@ -168,6 +157,25 @@ class GP:
             )
         if backend != "dense":
             raise ValueError(f"unknown train_backend {cfg.train_backend!r}")
+
+    def _train(self, x_dom, x_bdy, bdy_g, rhs, gamma, nugget, steps, damping,
+               grad_tol, sol0: Optional[torch.Tensor] = None) -> _TrainOut:
+        """The dense Newton train for kernel precisions ``gamma`` (3,) and
+        ``nugget``, shared by ``GPsolver`` and the tuner's candidates.
+        ``sol0`` (3N,) is the initial point; None draws it from a generator
+        seeded with 0, times ``config.init_scale``."""
+        N = x_dom.shape[0]
+        dev = x_dom.device
+        if sol0 is None:
+            gen = torch.Generator(device=dev).manual_seed(0)
+            sol0 = torch.randn((3 * N,), generator=gen, device=dev) * self.config.init_scale
+        sol0 = torch.as_tensor(sol0, dtype=torch.float32, device=dev)
+        if sol0.shape != (3 * N,):
+            raise ValueError(f"sol0 must have shape ({3 * N},), got {tuple(sol0.shape)}")
+        K = gram_matrix(x_dom, x_bdy, gamma, self.d)
+        _, C = regularized_factorization(K, nugget)
+        del K
+        return self._newton_body(C, bdy_g, rhs, steps, damping, grad_tol, sol0)
 
     def _newton_body(self, C, bdy_g, rhs, steps, damping, grad_tol,
                      sol0) -> _TrainOut:

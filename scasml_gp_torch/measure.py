@@ -8,10 +8,11 @@
    this implies (flops per pair counted from the kernel source, an FMA as
    2).  The main path calls it at n = 1200 to 4800; larger n shows how much
    of the card those calls leave idle.
-2. Solve profile: torch.profiler over one warm ScaSML u_solve(2, 2) on 1200
-   points; device time by kernel name, and the device's idle share of the
-   solve's wall time (median of 5 solves with the profiler off).
-3. Peak device memory allocated by the GP train and by one u_solve.
+2. Solve profiles: torch.profiler over one warm ScaSML u_solve(2, 2) and
+   one warm ScaSMLFullHistory u_solve(2, 2, M=3) on 1200 points; device time
+   by kernel name, and the device's idle share of the solve's wall time
+   (median of 5 solves with the profiler off).
+3. Peak device memory allocated by the GP train and by each u_solve.
 Needs a CUDA device; prints one line per measurement and writes all of them
 to --out as JSON.
 """
@@ -63,6 +64,52 @@ def event_ms(fn, k=7, inner=10, warmup=2):
     return statistics.median(samples)
 
 
+def profile_solve(name, solve):
+    """Peak memory of a first call, then the wall time (median of 5, profiler
+    off) and a torch.profiler breakdown of one warm call of ``solve``."""
+    dev = torch.device("cuda", 0)
+    torch.cuda.reset_peak_memory_stats(dev)
+    solve()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) / 2**20
+    print(f"[memory] {name} peak allocated {peak:.1f} MiB", flush=True)
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        solve()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall_ms = statistics.median(walls)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        solve()
+        torch.cuda.synchronize()
+    # device-side events only (kernels, memcpy/memset); the CPU-side aten
+    # rows repeat their kernels' time
+    rows = [
+        {"name": e.key, "count": e.count,
+         "device_ms": e.self_device_time_total / 1e3}
+        for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+        and e.self_device_time_total > 0
+    ]
+    rows.sort(key=lambda r: -r["device_ms"])
+    busy = sum(r["device_ms"] for r in rows)
+    kern = sum(r["device_ms"] for r in rows if "fused_posterior_kernel" in r["name"])
+    out = {"peak_mib": peak, "wall_ms_median_of_5": wall_ms, "device_busy_ms": busy,
+           "fused_posterior_ms": kern,
+           "device_launches": sum(r["count"] for r in rows),
+           "device_idle_share": 1.0 - busy / wall_ms, "by_kernel": rows}
+    print(f"[profile] {name} wall {wall_ms:.3f} ms (median of 5, profiler off); "
+          f"device busy {busy:.3f} ms in {out['device_launches']} "
+          f"device ops (fused_posterior {kern:.3f} ms); idle share "
+          f"{out['device_idle_share']:.3f}", flush=True)
+    for r in rows[:12]:
+        print(f"[profile] {r['device_ms']:.4f} ms  x{r['count']}  {r['name'][:90]}",
+              flush=True)
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="write the results as JSON here")
@@ -106,47 +153,11 @@ def main(argv=None):
     xt_dom, xt_bdy = eq.generate_test_data(
         1000, 200, torch.Generator(device=dev).manual_seed(42), device=dev)
     x_test = torch.cat([xt_dom, xt_bdy])
-    solver = port.ScaSML(eq, gp, seed=7)
-    torch.cuda.reset_peak_memory_stats(dev)
-    solver.u_solve(2, 2, x_test)
-    torch.cuda.synchronize()
-    res["solve_peak_mib"] = torch.cuda.max_memory_allocated(dev) / 2**20
-    print(f"[memory] u_solve(2, 2) peak allocated {res['solve_peak_mib']:.1f} MiB",
-          flush=True)
-    walls = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        solver.u_solve(2, 2, x_test)
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-    wall_ms = statistics.median(walls)
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        solver.u_solve(2, 2, x_test)
-        torch.cuda.synchronize()
-    # device-side events only (kernels, memcpy/memset); the CPU-side aten
-    # rows repeat their kernels' time
-    rows = [
-        {"name": e.key, "count": e.count,
-         "device_ms": e.self_device_time_total / 1e3}
-        for e in prof.key_averages()
-        if e.device_type == torch.autograd.DeviceType.CUDA
-        and e.self_device_time_total > 0
-    ]
-    rows.sort(key=lambda r: -r["device_ms"])
-    busy = sum(r["device_ms"] for r in rows)
-    kern = sum(r["device_ms"] for r in rows if "fused_posterior_kernel" in r["name"])
-    res["profile"] = {"wall_ms_median_of_5": wall_ms, "device_busy_ms": busy,
-                      "fused_posterior_ms": kern,
-                      "device_launches": sum(r["count"] for r in rows),
-                      "device_idle_share": 1.0 - busy / wall_ms, "by_kernel": rows}
-    print(f"[profile] u_solve wall {wall_ms:.3f} ms (median of 5, profiler off); "
-          f"device busy {busy:.3f} ms in {res['profile']['device_launches']} "
-          f"device ops (fused_posterior {kern:.3f} ms); idle share "
-          f"{1.0 - busy / wall_ms:.3f}", flush=True)
-    for r in rows[:12]:
-        print(f"[profile] {r['device_ms']:.4f} ms  x{r['count']}  {r['name'][:90]}",
-              flush=True)
+    res["profile"] = profile_solve(
+        "u_solve(2, 2)", lambda s=port.ScaSML(eq, gp, seed=7): s.u_solve(2, 2, x_test))
+    res["profile_full_history"] = profile_solve(
+        "full-history u_solve(2, 2, M=3)",
+        lambda s=port.ScaSMLFullHistory(eq, gp, seed=7): s.u_solve(2, 2, x_test, M=3))
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as fh:

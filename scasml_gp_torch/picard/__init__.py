@@ -6,9 +6,17 @@ from scasml_gp_torch.picard.schedule import (
     inverse_gamma,
     leggauss,
 )
-from scasml_gp_torch.picard.core import PicardModel, build_quadrature_uz
-from scasml_gp_torch.picard.mlp import MLP
-from scasml_gp_torch.picard.scasml import ScaSML
+from scasml_gp_torch.picard.core import (
+    PicardModel,
+    build_full_history_uz,
+    build_quadrature_uz,
+)
+from scasml_gp_torch.picard.mlp import MLP, MLP_full_history, MLPFullHistory
+from scasml_gp_torch.picard.scasml import (
+    ScaSML,
+    ScaSML_full_history,
+    ScaSMLFullHistory,
+)
 
 __all__ = [
     "PicardTables",
@@ -18,7 +26,12 @@ __all__ = [
     "inverse_gamma",
     "leggauss",
     "PicardModel",
+    "build_full_history_uz",
     "build_quadrature_uz",
     "MLP",
+    "MLPFullHistory",
+    "MLP_full_history",
     "ScaSML",
+    "ScaSMLFullHistory",
+    "ScaSML_full_history",
 ]

@@ -1,12 +1,12 @@
 """Multilevel Picard recursion over static schedules.
 
-Port of the quadrature path of ``scasml_gp_tpu/picard/core.py``.  The
-(n, rho) schedule is static (tables from :mod:`scasml_gp_torch.picard.schedule`),
-the recursion runs eagerly in Python, and the quadrature-point scan is a
-Python loop.  Every draw comes from the ``torch.Generator`` the caller passes
-in, taken in sequence: each tree node gets fresh numbers and no seed is
-reused across nodes.  Results match the JAX package in distribution, not
-bit for bit.
+Port of ``scasml_gp_tpu/picard/core.py``: the quadrature variant, over the
+(n, rho) tables of :mod:`scasml_gp_torch.picard.schedule`, and the
+full-history variant, over sample counts M^k.  The recursion runs eagerly in
+Python, and the quadrature-point scan is a Python loop.  Every draw comes
+from the ``torch.Generator`` the caller passes in, taken in sequence: each
+tree node gets fresh numbers and no seed is reused across nodes.  Results
+match the JAX package in distribution, not bit for bit.
 """
 
 from __future__ import annotations
@@ -34,7 +34,10 @@ class PicardModel(NamedTuple):
     dim: int
     clip: float      # output clip (norm_estimation / uncertainty)
     center_z: bool = False
-    time_sampling: str = "uniform"  # read by the full-history variant
+    # Full-history interior times: 'uniform' on [t, T], or 'sqrt' (tau = v^2,
+    # importance weight 2 v), which cancels the 1/sqrt(tau) singularity of
+    # the z weight.
+    time_sampling: str = "uniform"
     terminal_z: str = "reference"   # 'reference': / (T - t); 'corrected': / sqrt(T - t)
     path_dtype: str = "float32"     # storage dtype of the Brownian paths
     terminal_crn: "bool | int" = False      # parity probe, not ported
@@ -112,16 +115,20 @@ def _terminal_pass(model: PicardModel, params, x, t, gen: torch.Generator,
     return u, z
 
 
-def build_quadrature_uz(model: PicardModel, n: int, rho: int,
-                        tables: PicardTables,
-                        want_variance: bool = False) -> Callable:
-    """fn(x_t, gen, params) -> (B, 1+dim) [u, z] for the quadrature variant;
-    ``want_variance`` appends the top-level u-estimate MC variance column."""
+def _reject_parity_probes(model: PicardModel) -> None:
     if model.terminal_crn is not False or model.reference_semantics:
         raise NotImplementedError(
             "terminal_crn and reference_semantics are parity probes that are "
             "not ported"
         )
+
+
+def build_quadrature_uz(model: PicardModel, n: int, rho: int,
+                        tables: PicardTables,
+                        want_variance: bool = False) -> Callable:
+    """fn(x_t, gen, params) -> (B, 1+dim) [u, z] for the quadrature variant;
+    ``want_variance`` appends the top-level u-estimate MC variance column."""
+    _reject_parity_probes(model)
     Mf, Mg, Q, c, w = tables
     T, dim = model.T, model.dim
     pd = DTYPES[model.path_dtype]
@@ -193,6 +200,89 @@ def build_quadrature_uz(model: PicardModel, n: int, rho: int,
                         samp = samp + eps
                 if want_var:
                     var = var + w_k**2 * _sample_var_of_mean(samp, mf)
+
+        out = torch.clamp(torch.cat([u, z], dim=1), -model.clip, model.clip)
+        if want_var:
+            out = torch.cat([out, var], dim=1)  # variance column unclipped
+        return out
+
+    def fn(x_t, gen, params):
+        return uz(n, x_t, gen, params, want_var=want_variance)
+
+    return fn
+
+
+def build_full_history_uz(model: PicardModel, n: int, M: int,
+                          want_variance: bool = False) -> Callable:
+    """fn(x_t, gen, params) -> (B, 1+dim) [u, z] for the full-history
+    variant: level l samples M^(lvl-l) interior times tau on [t, T] and
+    updates u += (T-t) mean(y w), z += (T-t) mean(y xi w / sqrt(tau + 1e-6)),
+    where w is the time-sampling weight.  The terminal pass draws M^lvl
+    samples.  ``want_variance`` appends the top-level u-estimate MC variance
+    column (terminal pass plus each level's variance of the mean)."""
+    _reject_parity_probes(model)
+    T, dim = model.T, model.dim
+    pd = DTYPES[model.path_dtype]
+
+    def uz(lvl: int, x_t, gen, params, want_var: bool = False):
+        B, dev = x_t.shape[0], x_t.device
+        if lvl <= 0:
+            return torch.zeros((B, 1 + dim), dtype=torch.float32, device=dev)
+        x = x_t[:, :-1].to(torch.float32)
+        t = x_t[:, -1].to(torch.float32)
+        dT = (T - t)[:, None]
+
+        term = _terminal_pass(model, params, x, t, gen, int(M**lvl),
+                              want_var=want_var)
+        if want_var:
+            u, z, var = term
+        else:
+            (u, z), var = term, None
+
+        for l in range(lvl):
+            mf = int(M ** (lvl - l))
+            v = torch.rand((B, mf), generator=gen, device=dev, dtype=torch.float32)
+            if model.time_sampling == "sqrt":
+                tau = v * v
+                wgt = (2.0 * v)[..., None]
+            else:
+                tau = v
+                wgt = torch.ones((B, mf, 1), dtype=torch.float32, device=dev)
+            ts = (tau * dT)[..., None]                       # (B, mf, 1)
+            xi = torch.randn((B, mf, dim), generator=gen, device=dev, dtype=pd)
+            X = x[:, None, :] + model.mu * ts + model.sigma * torch.sqrt(ts) * xi
+            xt_k = torch.cat([X, t[:, None, None] + ts], dim=2).reshape(
+                -1, dim + 1).to(torch.float32)
+            inv_sqrt = 1.0 / torch.sqrt(ts + 1e-6)
+            eta = xi * inv_sqrt * wgt                        # (B, mf, dim)
+            wflat = wgt[..., 0]
+            samp = (torch.zeros((B, mf), dtype=torch.float32, device=dev)
+                    if want_var else None)
+            if l > 0 or not model.f_zero_at_zero:
+                sim_l = uz(l, xt_k, gen, params)
+                y = model.f(params, xt_k, sim_l[:, :1], sim_l[:, 1:]).reshape(B, mf)
+                u = u + dT * torch.mean(y * wflat, dim=1, keepdim=True)
+                z = z + dT * _z_accum(y, eta, mf, model.center_z)
+                if want_var:
+                    samp = samp + y * wflat
+            if l:
+                if l - 1 > 0 or not model.f_zero_at_zero:
+                    sim_lm1 = uz(l - 1, xt_k, gen, params)
+                    y2 = model.f(params, xt_k, sim_lm1[:, :1],
+                                 sim_lm1[:, 1:]).reshape(B, mf)
+                    u = u - dT * torch.mean(y2 * wflat, dim=1, keepdim=True)
+                    z = z - dT * _z_accum(y2, eta, mf, model.center_z)
+                    if want_var:
+                        samp = samp - y2 * wflat
+            elif model.leaf is not None:
+                eps = model.leaf(params, xt_k).reshape(B, mf)
+                u = u + dT * torch.mean(eps * wflat, dim=1, keepdim=True)
+                z = z + dT * _z_accum(eps, eta, mf, model.center_z)
+                if want_var:
+                    samp = samp + eps * wflat
+            if want_var:
+                # levels draw independent samples, so their variances add
+                var = var + dT * dT * _sample_var_of_mean(samp, mf)
 
         out = torch.clamp(torch.cat([u, z], dim=1), -model.clip, model.clip)
         if want_var:

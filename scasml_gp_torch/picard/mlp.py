@@ -1,9 +1,9 @@
-"""Plain multilevel Picard solver (no GP calibration).
+"""Plain multilevel Picard solvers (no GP calibration).
 
-Port of the quadrature solver of ``scasml_gp_tpu/picard/mlp.py``:
-``u_solve(n, rho, x_t)`` / ``uz_solve`` with an ``evaluation_counter``.
-Each solver owns a ``torch.Generator`` seeded at construction; successive
-solves continue its stream.
+Port of ``scasml_gp_tpu/picard/mlp.py``: ``MLP.u_solve(n, rho, x_t)`` and
+``MLPFullHistory.u_solve(n, rho, x_t, M)``, each with ``uz_solve`` and an
+``evaluation_counter``.  Each solver owns a ``torch.Generator`` seeded at
+construction; successive solves continue its stream.
 """
 
 from __future__ import annotations
@@ -14,9 +14,14 @@ import torch
 
 from scasml_gp_torch.config import PrecisionPolicy
 from scasml_gp_torch.equations.base import Equation
-from scasml_gp_torch.picard.core import PicardModel, build_quadrature_uz
+from scasml_gp_torch.picard.core import (
+    PicardModel,
+    build_full_history_uz,
+    build_quadrature_uz,
+)
 from scasml_gp_torch.picard.schedule import (
     approx_parameters,
+    count_evaluations_full_history,
     count_evaluations_quadrature,
 )
 
@@ -29,6 +34,7 @@ class _PicardBase:
                  center_z: Optional[bool] = None,
                  time_sampling: Optional[str] = None,
                  precision: Optional[PrecisionPolicy] = None,
+                 mesh=None, debug_checks: bool = False,
                  device="cpu", seed: int = 0,
                  terminal_crn: bool = False,
                  reference_semantics: bool = False):
@@ -36,6 +42,13 @@ class _PicardBase:
             raise NotImplementedError(
                 "terminal_crn and reference_semantics are not ported"
             )
+        if mesh is not None:
+            raise NotImplementedError(
+                "a device mesh is not ported (ROADMAP Queue 1 F)")
+        if debug_checks:
+            raise NotImplementedError(
+                "debug_checks (checkify float checks) are not ported "
+                "(ROADMAP Queue 1 J)")
         self.equation = equation
         self.precision = precision or PrecisionPolicy()
         self.center_z = (
@@ -125,3 +138,23 @@ class MLP(_PicardBase):
     def u_solve(self, n: int, rho: int, x_t) -> torch.Tensor:
         """(batch, 1) u values."""
         return self.uz_solve(n, rho, x_t)[:, :1]
+
+
+class MLPFullHistory(_PicardBase):
+    """Full-history multilevel Picard."""
+
+    def _build(self, schedule_key):
+        n, M = schedule_key
+        return build_full_history_uz(self._model(), n, M)
+
+    def uz_solve(self, n: int, rho, x_t, M: int = 3) -> torch.Tensor:
+        """(batch, 1 + dim) [u, z]; ``rho`` is unused, kept for API parity."""
+        out = self._run((int(n), int(M)), x_t)
+        self.evaluation_counter += count_evaluations_full_history(int(n), int(M))
+        return out
+
+    def u_solve(self, n: int, rho, x_t, M: int = 3) -> torch.Tensor:
+        return self.uz_solve(n, rho, x_t, M)[:, :1]
+
+
+MLP_full_history = MLPFullHistory

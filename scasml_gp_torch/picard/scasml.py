@@ -1,4 +1,4 @@
-"""ScaSML: GP-calibrated multilevel Picard (quadrature variant).
+"""ScaSML: GP-calibrated multilevel Picard (quadrature and full history).
 
 Port of ``scasml_gp_tpu/picard/scasml.py`` without the variance guard.  The
 recursion runs on the residual u_breve = u - u_hat of the trained GP:
@@ -19,27 +19,35 @@ from __future__ import annotations
 import torch
 
 from scasml_gp_torch.gp.solver import GP
-from scasml_gp_torch.picard.core import PicardModel, build_quadrature_uz
+from scasml_gp_torch.picard.core import (
+    PicardModel,
+    build_full_history_uz,
+    build_quadrature_uz,
+)
 from scasml_gp_torch.picard.mlp import _PicardBase
 from scasml_gp_torch.picard.schedule import (
     approx_parameters,
+    count_evaluations_full_history,
     count_evaluations_quadrature,
 )
 
 
 class _ScaSMLBase(_PicardBase):
     def __init__(self, equation, gp: GP, batch_chunk=None, center_z=None,
-                 time_sampling=None, precision=None, seed: int = 0,
-                 variance_guard=None, terminal_crn=False, adaptive_clip=None):
+                 time_sampling=None, precision=None, mesh=None,
+                 debug_checks=False, seed: int = 0, variance_guard=None,
+                 terminal_crn=False, adaptive_clip=None):
         super().__init__(equation, batch_chunk=batch_chunk, center_z=center_z,
                          time_sampling=time_sampling, precision=precision,
+                         mesh=mesh, debug_checks=debug_checks,
                          device=gp.device, seed=seed, terminal_crn=terminal_crn)
         guard = (getattr(equation, "variance_guard", False)
                  if variance_guard is None else variance_guard)
         if guard or adaptive_clip is not None:
             raise NotImplementedError(
-                "the variance guard, its probes and schedule selection, and "
-                "adaptive_clip are not ported"
+                "the variance guard, its probes and schedule selection "
+                "(escalate_M), and adaptive_clip are not ported (ROADMAP "
+                "Queue 1 C)"
             )
         self.GP = gp
         self.eval_chunk = gp.eval_chunk
@@ -109,3 +117,26 @@ class ScaSML(_ScaSMLBase):
         """u_hat + u_breve, shape (batch, 1)."""
         x_t = torch.as_tensor(x_t, dtype=torch.float32, device=self.device)
         return self._u_hat(x_t) + self.uz_solve(n, rho, x_t)[:, :1]
+
+
+class ScaSMLFullHistory(_ScaSMLBase):
+    """Full-history ScaSML."""
+
+    def _build(self, schedule_key):
+        n, M = schedule_key
+        return build_full_history_uz(self._model(), n, M)
+
+    def uz_solve(self, n: int, rho, x_t, M: int = 3) -> torch.Tensor:
+        """(batch, 1 + dim) [u_breve, z_breve]; ``rho`` is unused."""
+        out = self._run((int(n), int(M)), x_t)
+        self.evaluation_counter += count_evaluations_full_history(
+            int(n), int(M), scasml_variant=True, count_fg=True)
+        return out
+
+    def u_solve(self, n: int, rho, x_t, M: int = 3) -> torch.Tensor:
+        """u_hat + u_breve, shape (batch, 1)."""
+        x_t = torch.as_tensor(x_t, dtype=torch.float32, device=self.device)
+        return self._u_hat(x_t) + self.uz_solve(n, rho, x_t, M)[:, :1]
+
+
+ScaSML_full_history = ScaSMLFullHistory
