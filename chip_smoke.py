@@ -27,6 +27,19 @@ Phases, each printing its own lines:
               u_solve(2, 2, M=3), kernel launches of each part, rel-L2 of
               GP, MLP and SCaSML; the kernel against its plain version with
               the tuned weights at the full-history path's shapes.
+  6. extra:   the three other PDE families at d=100 through the runner's
+              solvers and SimpleUniform (1000 + 200 train and test points,
+              seed 1234, n = rho = 2, M = 3, full history, into
+              results/smoke_extra/): SineNonlinear flagless (tuned; the
+              kernel at F = 101 against posterior_block for all four
+              specialisations), HJB with the Cole-Hopf mixture surrogate,
+              HJB with the coarse rbf surrogate (the guard's repair branch;
+              its float32 terminal fit against a float64 one) and
+              AllenCahn against the MC oracle.  Tune, train, solve and
+              oracle times, kernel launches (zero on the HJB and
+              Allen-Cahn paths), rel-L2 of GP, MLP and SCaSML, the guard's
+              lambda and ladder, and per-call times of the semigroup
+              surrogates' feature blocks.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero; there
 is no CPU path.  Imports neither JAX nor the JAX package.
@@ -260,6 +273,222 @@ def runner_phase(dev, smi):
     return records
 
 
+EXTRA_D = 100
+EXTRA_DIR = "results/smoke_extra"
+EXTRA_ROWS = {(False, False): 10800, (True, False): 3600, (False, True): 10800,
+              (True, True): 1200}
+
+
+def extra_run(config, dev, make_gp=None):
+    """What runner.run(config) does, on solvers kept here so that the
+    guard's lambda and ladder can be read afterwards.  ``make_gp(eq)``
+    replaces the runner's surrogate, and ScaSML is rebuilt on it."""
+    import torch
+
+    from scasml_gp_torch.gp import fused_posterior as fp
+    from scasml_gp_torch.harness import runner
+    from scasml_gp_torch.picard.scasml import ScaSMLFullHistory
+
+    eq, gp, mlp, sca = runner.build_solvers(config, dev)
+    if make_gp is not None:
+        gp = make_gp(eq)
+        sca = ScaSMLFullHistory(eq, gp, batch_chunk=config.picard.batch_chunk)
+    harness = runner.HARNESSES[config.harness](eq, gp, mlp, sca)
+    torch.cuda.synchronize()
+    fp.reset_launches()
+    result = harness.test(runner.run_dir(config),
+                          **runner.harness_kwargs(config, make_plots=False))
+    torch.cuda.synchronize()
+    return result, dict(fp.launches_by_flags), eq, gp, sca
+
+
+def report_run(tag, smi, result, launches, sca, tune_s=None):
+    """Print one run's times, rel-L2, launches and guard; return rel-L2."""
+    rel = {k: result["metrics"][k]["rel_L2"] for k in SOLVERS}
+    t = result["times"]
+    tune = f"tune {tune_s:.3f} s; " if tune_s is not None else ""
+    print(f"[extra] {tag}: {smi}; {tune}GP train {t['GP_train']:.4f} s; "
+          f"solves GP {t['GP']:.4f} s, MLP {t['MLP']:.4f} s, SCaSML "
+          f"{t['SCaSML']:.4f} s (host clock, first call)", flush=True)
+    ladder = ", ".join(f"(n={c[0]}, {c[1]}): {lam:.4f}"
+                       for c, lam in sca.last_ladder)
+    print(f"[extra] {tag}: rel-L2 GP {rel['GP']:.6f}, MLP {rel['MLP']:.6f}, "
+          f"SCaSML {rel['SCaSML']:.6f}; kernel launches "
+          f"{by_flags_str(launches)}; guard {sca.variance_guard}, last_lambda "
+          f"{sca.last_lambda}, ladder [{ladder}]", flush=True)
+    check(all(math.isfinite(v) for v in leaves(result["metrics"])),
+          f"{tag}: a metric is not finite")
+    return rel
+
+
+def extra_phase(dev, smi):
+    """Phase 6: SineNonlinear, HJB (mixture and coarse rbf) and AllenCahn
+    at d=100; returns the Sine kernel records for the JSON line."""
+    import torch
+
+    import scasml_gp_torch as port
+    from scasml_gp_torch.gp import fused_posterior as fp
+    from scasml_gp_torch.gp.cole_hopf import GPHJBColeHopf, sq_dists, terminal_fit
+    from scasml_gp_torch.gp.posterior import posterior_block
+    from scasml_gp_torch.gp.semigroup import mixture_features
+    from scasml_gp_torch.harness import runner
+    from scasml_gp_torch.harness.metrics import mc_reference_solution
+    from scasml_gp_torch.measure import event_ms
+
+    def config_for(equation):
+        return port.RunConfig(
+            equation=equation, dim=EXTRA_D, num_domain=N_DOM,
+            num_boundary=N_BDY, test_domain=N_TEST_DOM,
+            test_boundary=N_TEST_BDY, seed=1234, harness="SimpleUniform",
+            save_path=EXTRA_DIR,
+            picard=port.PicardConfig(variant="full_history", n=2, rho=2, M=3),
+        )
+
+    def test_points(eq):  # the harness's test set (seed + 1)
+        gen = torch.Generator(device=dev).manual_seed(1235)
+        return torch.cat(eq.generate_test_data(N_TEST_DOM, N_TEST_BDY, gen,
+                                               device=dev))
+
+    def feature_ms(tag, fn, rows, eq):
+        x = eq.geometry().sample_domain(
+            torch.Generator(device=dev).manual_seed(8), rows, device=dev)
+        for need in (False, True):
+            ms = event_ms(lambda: fn(x, need))
+            print(f"[extra] {tag} feature block, want_grad=want_ops={need:d}, "
+                  f"{rows} rows: {ms:.4f} ms per call (CUDA events; {smi})",
+                  flush=True)
+
+    # 6a. SineNonlinear, flagless: tuned, every posterior through the kernel
+    config = config_for("SineNonlinear")
+    check(runner.resolve_tune(None, 0.0, 1.0, False, config.equation),
+          "a flagless SineNonlinear run does not tune")
+    torch.cuda.synchronize()
+    fp.reset_launches()
+    t0 = time.perf_counter()
+    config, tuned = runner.tuned_config(config, dev)
+    torch.cuda.synchronize()
+    tune_s = time.perf_counter() - t0
+    tune_launches = dict(fp.launches_by_flags)
+    print(f"[extra] Sine d={EXTRA_D}: winner ridge_scale="
+          f"{config.gp.ridge_scale} gamma_scale={config.gp.gamma_scale} score "
+          f"{tuned.score:.6g}; tune launches {by_flags_str(tune_launches)}",
+          flush=True)
+    result, run_launches, eq, gp, sca = extra_run(config, dev)
+    rel = report_run(f"Sine d={EXTRA_D}", smi, result, run_launches, sca, tune_s)
+    check(rel["GP"] < 0.08, f"Sine GP rel-L2 {rel['GP']} not below 0.08")
+    check(rel["SCaSML"] < rel["GP"],
+          f"Sine SCaSML rel-L2 {rel['SCaSML']} not below GP {rel['GP']}")
+    check(rel["MLP"] < 0.25, f"Sine MLP rel-L2 {rel['MLP']} not below 0.25")
+    for flags in MAIN_SPECS:
+        check(tune_launches.get(flags, 0) > 0 and run_launches.get(flags, 0) > 0,
+              f"Sine: the kernel {flags} was not launched in the tune and run")
+    st = gp.state
+    fused = st.fused_inputs()
+    gen_x = torch.Generator(device=dev).manual_seed(6)
+    records = {}
+    for flags, n in EXTRA_ROWS.items():
+        x = eq.geometry().sample_domain(gen_x, n, device=dev)
+        err = compare_kernel(x, fused, st.x_dom, st.x_bdy, st.right_vector,
+                             st.gamma, EXTRA_D, flags,
+                             f"tuned Sine GP d={EXTRA_D}, n={n}")
+        k_ms = event_ms(lambda: fp.fused_posterior(x, fused, *flags))
+        p_ms = event_ms(lambda: posterior_block(
+            x, st.x_dom, st.x_bdy, st.right_vector, st.gamma, EXTRA_D, *flags))
+        records[flags] = {"rows": n, "max_abs_err": err, "ms": k_ms,
+                          "plain_ms": p_ms,
+                          "launches": {"tune": tune_launches.get(flags, 0),
+                                       "run": run_launches.get(flags, 0)}}
+        print(f"[extra] Sine d={EXTRA_D} kernel (want_grad={flags[0]:d}, "
+              f"want_ops={flags[1]:d}) n={n}, F={EXTRA_D + 1}: kernel "
+              f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, max abs err {err:.3g} "
+              f"({smi})", flush=True)
+
+    # 6b. HJB, the CLI default: the exact Bernstein-mixture surrogate
+    config = config_for("HJB")
+    check(not runner.resolve_tune(None, 0.0, 1.0, False, config.equation),
+          "a flagless HJB run tunes")
+    result, launches, eq, gp, sca = extra_run(config, dev)
+    rel = report_run(f"HJB d={EXTRA_D} mixture", smi, result, launches, sca)
+    check(gp.terminal_backend == "mixture", "HJB's default is not the mixture")
+    check(sum(launches.values()) == 0,
+          f"HJB mixture path launched the fused kernel: {launches}")
+    check(rel["GP"] < 0.002, f"HJB GP rel-L2 {rel['GP']} not below 0.002")
+    check(abs(rel["SCaSML"] - rel["GP"]) < 0.002,
+          f"HJB SCaSML rel-L2 {rel['SCaSML']} not within 0.002 of GP")
+    check(rel["MLP"] < 0.4, f"HJB MLP rel-L2 {rel['MLP']} not below 0.4")
+    x_test = test_points(eq)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    exact = eq.exact_solution(x_test)
+    torch.cuda.synchronize()
+    print(f"[extra] HJB d={EXTRA_D} Cole-Hopf MC oracle (32768 samples) on "
+          f"{x_test.shape[0]} points: {time.perf_counter() - t0:.4f} s ({smi})",
+          flush=True)
+    feature_ms(f"HJB d={EXTRA_D} mixture_features", lambda x, need:
+               mixture_features(x, gp.state.right_vector, gp.state.sol, gp.sig2,
+                                eq.T, EXTRA_D, need, need), 10800, eq)
+
+    # 6c. HJB, the coarse scattered-rbf surrogate: the guard repairs it
+    result, launches, eq, gp, sca = extra_run(
+        config, dev,
+        make_gp=lambda e: GPHJBColeHopf(e, config.gp, device=dev,
+                                        terminal_backend="rbf"))
+    rel = report_run(f"HJB d={EXTRA_D} coarse rbf", smi, result, launches, sca)
+    check(sum(launches.values()) == 0,
+          f"HJB rbf path launched the fused kernel: {launches}")
+    check(0.08 <= rel["GP"] <= 0.18, f"HJB rbf GP rel-L2 {rel['GP']} "
+          "outside [0.08, 0.18]")
+    check(rel["SCaSML"] < 0.75 * rel["GP"],
+          f"HJB rbf SCaSML rel-L2 {rel['SCaSML']} not below 0.75 x GP")
+    check(sca.last_lambda is not None and sca.last_lambda >= 0.5,
+          f"HJB rbf: the ladder accepted no candidate ({sca.last_lambda})")
+    st = gp.state
+    alpha64, mbar64, _ = terminal_fit(sq_dists(st.x_bdy[:, :-1]).double(),
+                                      st.sol.double(), gp.width, gp.fit_nugget)
+    st64 = port.GPState(
+        x_dom=st.x_dom, x_bdy=st.x_bdy, right_vector=alpha64.float(), sol=st.sol,
+        gamma=torch.stack([st.gamma[0], st.gamma[1], mbar64.float()]),
+        loss_history=st.loss_history)
+    e32 = rel_l2(gp.predict(x_test), exact)
+    e64 = rel_l2(gp.posterior_u(st64, x_test).u, exact)
+    print(f"[extra] HJB rbf terminal fit (m={st.x_bdy.shape[0]}): GP rel-L2 "
+          f"{e32:.6f} with the float32 Cholesky, {e64:.6f} with a float64 "
+          f"factorization of the same points; fit rms "
+          f"{float(st.loss_history[0]):.3g}", flush=True)
+    check(abs(e32 - e64) < 0.1 * e64, f"HJB rbf: the float32 fit's rel-L2 "
+          f"{e32} is not within 10% of the float64 fit's {e64}")
+    feature_ms(f"HJB d={EXTRA_D} rbf _v_block", lambda x, need:
+               gp._v_posterior(st, x, need, need), 10800, eq)
+
+    # 6d. AllenCahn: the mixture surrogate against the deep-MC oracle
+    config = config_for("AllenCahn")
+    result, launches, eq, gp, sca = extra_run(config, dev)
+    rel = report_run(f"AllenCahn d={EXTRA_D}", smi, result, launches, sca)
+    with open(os.path.join(runner.run_dir(config), "SimpleUniform",
+                           "metrics.json")) as fh:
+        oc = json.load(fh)["oracle_consistency"]
+    print(f"[extra] AllenCahn d={EXTRA_D}: MC oracle half-run disagreement "
+          f"{oc['half_run_rel_disagreement']:.6f}", flush=True)
+    check(sum(launches.values()) == 0,
+          f"AllenCahn path launched the fused kernel: {launches}")
+    check(rel["GP"] < 0.01, f"AllenCahn GP rel-L2 {rel['GP']} not below 0.01")
+    check(rel["SCaSML"] < 0.01,
+          f"AllenCahn SCaSML rel-L2 {rel['SCaSML']} not below 0.01")
+    check(rel["MLP"] < 0.05, f"AllenCahn MLP rel-L2 {rel['MLP']} not below 0.05")
+    x_test = test_points(eq)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mc_reference_solution(eq, x_test, seed=123)
+    torch.cuda.synchronize()
+    print(f"[extra] AllenCahn d={EXTRA_D} MC oracle (one of the two runs, "
+          f"n=3, M=8) on {x_test.shape[0]} points: "
+          f"{time.perf_counter() - t0:.4f} s ({smi})", flush=True)
+    feature_ms(f"AllenCahn d={EXTRA_D} mixture_features", lambda x, need:
+               mixture_features(x, gp.state.right_vector, gp.state.sol, gp.sig2,
+                                eq.T, EXTRA_D, need, need), 10800, eq)
+    return records
+
+
 def main():
     import torch
 
@@ -390,6 +619,9 @@ def main():
     # 5. the flagless full-history runner path
     fh = runner_phase(dev, smi)
 
+    # 6. the three other PDE families at d=100
+    extra = extra_phase(dev, smi)
+
     kernels = [
         {
             "name": f"fused_posterior[{caller}: want_grad={f[0]:d} want_ops={f[1]:d}]",
@@ -401,6 +633,7 @@ def main():
             "ms": times[f][0],
             "plain_ms": times[f][1],
             "full_history": fh[f],
+            "sine_d100": extra[f],
         }
         for f, (caller, _) in MAIN_SPECS.items()
     ]

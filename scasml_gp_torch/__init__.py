@@ -5,12 +5,16 @@ posterior (the hot path of the Picard rollout) in a hand-written CUDA kernel
 for Hopper.  The JAX package ``scasml_gp_tpu`` is the reference this port is
 checked against; the port never imports it.
 
-- ``equations``  PDE definitions and torch.Generator-driven samplers.
+- ``equations``  PDE definitions (GradDependentNonlinear, HJB, AllenCahn,
+                 SineNonlinear) and torch.Generator-driven samplers.
 - ``gp``         closed-form RBF derivative kernels, Gram assembly, the
                  equilibrated float32 Cholesky, damped Newton, and the
-                 posterior (plain PyTorch on the CPU, the CUDA kernel on a GPU).
+                 posterior (plain PyTorch on the CPU, the CUDA kernel on a GPU);
+                 the posterior variance; the Cole-Hopf (HJB) and
+                 reaction-semigroup (Allen-Cahn) surrogates.
 - ``picard``     static schedules, the quadrature and full-history
-                 multilevel Picard recursions, MLP and ScaSML in both variants.
+                 multilevel Picard recursions, MLP and ScaSML in both variants,
+                 with ScaSML's variance guard.
 - ``harness``    the runner CLI and the SimpleUniform / RepeatedExperiment
                  harnesses; ``gp.tuning`` is the ScaSML-judged kernel tuner.
 - ``utils``      the nvcc build of ``csrc/*.cu``, logging and profiling.
@@ -33,11 +37,22 @@ from scasml_gp_torch.config import (  # noqa: E402
     RunConfig,
 )
 from scasml_gp_torch.equations import (  # noqa: E402
+    EQUATIONS,
+    HJB,
+    AllenCahn,
     Equation,
     GradDependentNonlinear,
     HypercubeGeometry,
+    SineNonlinear,
 )
-from scasml_gp_torch.gp import GP, GPGradDependentNonlinear, GPState  # noqa: E402
+from scasml_gp_torch.gp import (  # noqa: E402
+    GP,
+    GPAllenCahnSemigroup,
+    GPGradDependentNonlinear,
+    GPHJBColeHopf,
+    GPSineNonlinear,
+    GPState,
+)
 from scasml_gp_torch.picard import (  # noqa: E402
     MLP,
     MLPFullHistory,
@@ -51,11 +66,18 @@ __all__ = [
     "PicardConfig",
     "PrecisionPolicy",
     "RunConfig",
+    "EQUATIONS",
     "Equation",
     "GradDependentNonlinear",
+    "HJB",
+    "AllenCahn",
+    "SineNonlinear",
     "HypercubeGeometry",
     "GP",
     "GPGradDependentNonlinear",
+    "GPSineNonlinear",
+    "GPHJBColeHopf",
+    "GPAllenCahnSemigroup",
     "GPState",
     "MLP",
     "MLPFullHistory",

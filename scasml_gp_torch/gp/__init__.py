@@ -15,9 +15,20 @@ from scasml_gp_torch.gp.posterior import PosteriorOut, posterior_block, posterio
 from scasml_gp_torch.gp.state import GPState, load_state, save_state, state_from_numpy
 from scasml_gp_torch.gp.solver import (
     GP,
+    AllenCahnForm,
+    GPAllenCahn,
     GPForm,
     GPGradDependentNonlinear,
+    GPSineNonlinear,
     GradDependentForm,
+    SineForm,
+)
+from scasml_gp_torch.gp.cole_hopf import GPHJBColeHopf
+from scasml_gp_torch.gp.semigroup import GPAllenCahnSemigroup
+from scasml_gp_torch.gp.variance import (
+    cross_phi,
+    factor_for_variance,
+    posterior_variance,
 )
 
 __all__ = [
@@ -42,6 +53,15 @@ __all__ = [
     "state_from_numpy",
     "GP",
     "GPForm",
-    "GPGradDependentNonlinear",
     "GradDependentForm",
+    "AllenCahnForm",
+    "SineForm",
+    "GPGradDependentNonlinear",
+    "GPAllenCahn",
+    "GPSineNonlinear",
+    "GPHJBColeHopf",
+    "GPAllenCahnSemigroup",
+    "cross_phi",
+    "factor_for_variance",
+    "posterior_variance",
 ]

@@ -135,10 +135,11 @@ def posterior_eval(x, x_dom, x_bdy, r, gamma, dim: int,
     if operand_dtype not in (None, "float32", torch.float32):
         raise NotImplementedError(
             f"operand_dtype={operand_dtype!r}: only float32 posterior "
-            "operands are ported"
+            "operands are ported (ROADMAP Queue 1 I)"
         )
     if shard_dom is not None:
-        raise NotImplementedError("shard_dom: the sharded posterior is not ported")
+        raise NotImplementedError(
+            "shard_dom: the sharded posterior is not ported (ROADMAP Queue 1 F)")
     if x.is_cuda:
         from scasml_gp_torch.gp import fused_posterior as fp
 

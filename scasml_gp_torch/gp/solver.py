@@ -24,6 +24,7 @@ from scasml_gp_torch.gp.gram import gram_matrix, regularized_factorization
 from scasml_gp_torch.gp.kernels import kernel_gammas
 from scasml_gp_torch.gp.posterior import posterior_eval
 from scasml_gp_torch.gp.state import GPState
+from scasml_gp_torch.gp.variance import factor_for_variance, posterior_variance
 
 
 class GPForm:
@@ -78,6 +79,56 @@ class GradDependentForm(GPForm):
         return dt_u + (sig2 * u - 1.0 / d - sig2 / 2.0) * div_u + (sig2 / 2.0) * lap_u
 
 
+class AllenCahnForm(GPForm):
+    """Allen-Cahn (mu = 0): F = -(sigma^2/2) z3 - (z1 - z1^3) + rhs."""
+
+    def F(self, z1, z3, z5, rhs):
+        sig2 = self.equation.sigma() ** 2
+        return -(sig2 / 2.0) * z3 - (z1 - z1**3) + rhs
+
+    def dF(self, z1, z3, z5):
+        sig2 = self.equation.sigma() ** 2
+        return (-(1.0 - 3.0 * z1 * z1), -(sig2 / 2.0) * torch.ones_like(z1),
+                torch.zeros_like(z1))
+
+    def d2F_contraction(self, w, z1, z3, z5):
+        return {(0, 0): 6.0 * z1 * w}
+
+    def residual(self, x, u, dt_u, div_u, lap_u):
+        sig2 = self.equation.sigma() ** 2
+        return dt_u + (sig2 / 2.0) * lap_u + (u - u**3)
+
+
+class SineForm(GPForm):
+    """SineNonlinear, the one family with a nonzero ``rhs_f``:
+    F = -(mu + sigma/d) z5 - (sigma^2/2) z3 - sin(z1) + rhs, rhs = -R(x)."""
+
+    def rhs_f(self, x_dom):
+        return (-self.equation.forcing(x_dom)).to(torch.float32)
+
+    def F(self, z1, z3, z5, rhs):
+        eq = self.equation
+        sig = eq.sigma()
+        c5 = eq.mu() + sig / eq.dim
+        return -c5 * z5 - (sig**2 / 2.0) * z3 - torch.sin(z1) + rhs
+
+    def dF(self, z1, z3, z5):
+        eq = self.equation
+        sig = eq.sigma()
+        ones = torch.ones_like(z1)
+        return (-torch.cos(z1), -(sig**2 / 2.0) * ones,
+                -(eq.mu() + sig / eq.dim) * ones)
+
+    def d2F_contraction(self, w, z1, z3, z5):
+        return {(0, 0): torch.sin(z1) * w}
+
+    def residual(self, x, u, dt_u, div_u, lap_u):
+        eq = self.equation
+        sig = eq.sigma()
+        return (dt_u + (eq.mu() + sig / eq.dim) * div_u
+                + (sig**2 / 2.0) * lap_u + torch.sin(u) + eq.forcing(x))
+
+
 class _TrainOut(NamedTuple):
     sol: torch.Tensor
     right_vector: torch.Tensor
@@ -99,12 +150,14 @@ class GP:
         cfg = self.config
         if cfg.laplacian != "exact" or cfg.parity_fp16:
             raise NotImplementedError(
-                "parity modes (laplacian='subset', parity_fp16) are not ported"
+                "parity modes (laplacian='subset', parity_fp16) are not ported "
+                "(ROADMAP Queue 1 I)"
             )
         if cfg.posterior_backend not in ("auto", "xla"):
             raise ValueError(f"unknown posterior backend {cfg.posterior_backend!r}")
         if self.precision.gram != "float32":
-            raise NotImplementedError("only the float32 gram policy is ported")
+            raise NotImplementedError(
+                "only the float32 gram policy is ported (ROADMAP Queue 1 I)")
         equation.geometry()
         self.T = equation.T
         self.t0 = equation.t0
@@ -153,7 +206,7 @@ class GP:
             raise NotImplementedError(
                 "the distributed (dual-CG) trainer is not ported; phi = "
                 f"{4 * x_dom.shape[0] + x_bdy.shape[0]} > dense_phi_max = "
-                f"{cfg.dense_phi_max} needs it"
+                f"{cfg.dense_phi_max} needs it (ROADMAP Queue 1 F)"
             )
         if backend != "dense":
             raise ValueError(f"unknown train_backend {cfg.train_backend!r}")
@@ -299,8 +352,40 @@ class GP:
         self._require_state()
         return self.residual_u(self.state, x_t_infer)
 
+    def predict_std(self, x_t_infer) -> torch.Tensor:
+        """Posterior standard deviation of the collocation model, shape
+        (n, 1) (gp/variance.py).  The (K + nugget I)^{-1} factor is rebuilt
+        once per trained state and cached on the instance."""
+        self._require_state()
+        st = self.state
+        if getattr(self, "_var_cache_for", None) is not st:
+            self._var_C = factor_for_variance(st.x_dom, st.x_bdy, st.gamma,
+                                              self.nugget, self.d)
+            self._var_cache_for = st
+        x = torch.as_tensor(x_t_infer, dtype=torch.float32, device=st.x_dom.device)
+        var = posterior_variance(x, st.x_dom, st.x_bdy, self._var_C, st.gamma,
+                                 self.d, chunk=self.eval_chunk)
+        return torch.sqrt(var)[:, None]
+
+    def predict_with_std(self, x_t_infer):
+        """(posterior mean, posterior std), each shape (n, 1)."""
+        return self.predict(x_t_infer), self.predict_std(x_t_infer)
+
 
 class GPGradDependentNonlinear(GP):
     """GP surrogate for GradDependentNonlinear."""
 
     form_cls = GradDependentForm
+
+
+class GPAllenCahn(GP):
+    """Space-time collocation GP for AllenCahn (the runner uses the
+    reaction-semigroup surrogate, gp/semigroup.py, instead)."""
+
+    form_cls = AllenCahnForm
+
+
+class GPSineNonlinear(GP):
+    """GP surrogate for SineNonlinear."""
+
+    form_cls = SineForm

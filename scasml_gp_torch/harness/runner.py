@@ -20,8 +20,10 @@ import sys
 import torch
 
 from scasml_gp_torch.config import MeshConfig, PrecisionPolicy, RunConfig
-from scasml_gp_torch.equations import GradDependentNonlinear
-from scasml_gp_torch.gp.solver import GPGradDependentNonlinear
+from scasml_gp_torch.equations import EQUATIONS
+from scasml_gp_torch.gp.cole_hopf import GPHJBColeHopf
+from scasml_gp_torch.gp.semigroup import GPAllenCahnSemigroup
+from scasml_gp_torch.gp.solver import GPGradDependentNonlinear, GPSineNonlinear
 from scasml_gp_torch.gp.tuning import TuneResult, tune_gp
 from scasml_gp_torch.harness.repeated import RepeatedExperiment
 from scasml_gp_torch.harness.simple_uniform import SimpleUniform
@@ -32,14 +34,19 @@ HARNESSES = {
     "SimpleUniform": SimpleUniform,
     "RepeatedExperiment": RepeatedExperiment,
 }
-# The JAX package's other harnesses and equations; the CLI accepts their
-# names and raises NotImplementedError for them.
+# The JAX package's other harnesses; the CLI accepts their names and raises
+# NotImplementedError for them.
 UNPORTED_HARNESSES = ("ConvergenceRate", "InferenceScaling", "SimpleScaling",
                       "ComputingBudget")
-UNPORTED_EQUATIONS = ("AllenCahn", "HJB", "SineNonlinear")
 
-EQUATIONS = {"GradDependentNonlinear": GradDependentNonlinear}
-GP_CLASSES = {"GradDependentNonlinear": GPGradDependentNonlinear}
+GP_CLASSES = {
+    "GradDependentNonlinear": GPGradDependentNonlinear,
+    # the semigroup surrogates: space-time collocation is ill-posed for
+    # these terminal-value problems (gp/cole_hopf.py, gp/semigroup.py)
+    "AllenCahn": GPAllenCahnSemigroup,
+    "HJB": GPHJBColeHopf,
+    "SineNonlinear": GPSineNonlinear,
+}
 
 # The flagless tune's grid: ridge resolves the high-d mean direction,
 # gamma_scale is the big lever at low d; 5 x 4 = 20 candidates.
@@ -64,9 +71,6 @@ def check_ported(config: RunConfig) -> None:
             f"the {config.harness} harness is not ported (ROADMAP Queue 1 G)")
     if config.harness not in HARNESSES:
         raise ValueError(f"unknown harness {config.harness!r}")
-    if config.equation in UNPORTED_EQUATIONS:
-        raise NotImplementedError(
-            f"the {config.equation} equation is not ported (ROADMAP Queue 1 E)")
     if config.equation not in EQUATIONS:
         raise ValueError(f"unknown equation {config.equation!r}")
     if config.mesh.data * config.mesh.model > 1 or config.mesh.data == -1:
@@ -103,10 +107,17 @@ def run(config: RunConfig, device="cuda", **test_kwargs):
     dev = resolve_device(device)
     eq, gp, mlp, scasml = build_solvers(config, dev)
     harness = HARNESSES[config.harness](eq, gp, mlp, scasml, wandb=config.wandb)
-    save_path = (
-        f"{config.save_path}/{config.equation}/{config.dim}d/"
-        f"{config.picard.variant}"
-    )
+    return harness.test(run_dir(config), **harness_kwargs(config, **test_kwargs))
+
+
+def run_dir(config: RunConfig) -> str:
+    """<save_path>/<equation>/<dim>d/<variant>; the harness adds its name."""
+    return (f"{config.save_path}/{config.equation}/{config.dim}d/"
+            f"{config.picard.variant}")
+
+
+def harness_kwargs(config: RunConfig, **test_kwargs) -> dict:
+    """The keyword arguments ``run`` passes to the harness's ``test``."""
     kwargs = dict(
         seed=config.seed,
         rhomax=config.picard.rho,
@@ -118,7 +129,7 @@ def run(config: RunConfig, device="cuda", **test_kwargs):
     if config.picard.variant == "full_history":
         kwargs["M"] = config.picard.M
     kwargs.update(test_kwargs)
-    return harness.test(save_path, **kwargs)
+    return kwargs
 
 
 def resolve_tune(tune_flag, ridge_scale, time_scale, fit_ml, equation):

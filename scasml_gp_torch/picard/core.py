@@ -119,7 +119,7 @@ def _reject_parity_probes(model: PicardModel) -> None:
     if model.terminal_crn is not False or model.reference_semantics:
         raise NotImplementedError(
             "terminal_crn and reference_semantics are parity probes that are "
-            "not ported"
+            "not ported (ROADMAP Queue 1 I)"
         )
 
 

@@ -40,7 +40,8 @@ class _PicardBase:
                  reference_semantics: bool = False):
         if terminal_crn is not False or reference_semantics:
             raise NotImplementedError(
-                "terminal_crn and reference_semantics are not ported"
+                "terminal_crn and reference_semantics are not ported "
+                "(ROADMAP Queue 1 I)"
             )
         if mesh is not None:
             raise NotImplementedError(

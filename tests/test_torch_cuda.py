@@ -1,5 +1,7 @@
 """The fused-posterior CUDA kernel on the card, against its plain PyTorch
-version.  Every test here is marked ``cuda`` and skips where
+version, and the card's float32 factorizations (the GP's inverse, the
+Cole-Hopf rbf terminal fit) against float64 ones.  Every test here is marked
+``cuda`` and skips where
 torch.cuda.is_available() is false.  On a GPU host (which need not have JAX,
 hence --noconftest):
 
@@ -8,6 +10,8 @@ hence --noconftest):
 Tolerance: rtol = atol = 2e-4, the posterior's bar (tests/test_pallas.py);
 kernel and plain version differ in summation order and in how r^2 is formed.
 """
+
+import dataclasses
 
 import pytest
 import torch
@@ -110,4 +114,36 @@ def test_wide_kernel_factorization_matches_float64():
                           cfg.gn_steps, cfg.damping, cfg.grad_tol, sol0)
     e64 = rel(posterior_block(x_test, x_dom, x_bdy, out.right_vector,
                               gp.state.gamma, 20, False, False).u[:, None])
+    assert abs(e32 - e64) < 0.1 * e64, (e32, e64)
+
+
+@pytest.mark.cuda
+def test_rbf_terminal_fit_matches_float64():
+    """The coarse rbf Cole-Hopf surrogate for HJB at d=100 (m = 1000 + 200
+    terminal centers, nugget 1e-4, a wide Gaussian kernel): its float32
+    Cholesky fit on the card gives a rel-L2 within 10% of a float64
+    factorization of the same squared distances and targets."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import scasml_gp_torch as port
+    from scasml_gp_torch.gp.cole_hopf import sq_dists, terminal_fit
+
+    dev = torch.device("cuda", 0)
+    eq = port.HJB(n_input=101)
+    x_dom, x_bdy = eq.generate_data(
+        1000, 200, torch.Generator(device=dev).manual_seed(1234), device=dev)
+    x_test = torch.cat(eq.generate_test_data(
+        1000, 200, torch.Generator(device=dev).manual_seed(1235), device=dev))
+    exact = eq.exact_solution(x_test).double()
+    gp = port.GPHJBColeHopf(eq, device=dev, terminal_backend="rbf")
+    gp.GPsolver(x_dom, x_bdy)
+    st = gp.state
+    alpha64, mbar64, _ = terminal_fit(sq_dists(st.x_bdy[:, :-1]).double(),
+                                      st.sol.double(), gp.width, gp.fit_nugget)
+    st64 = dataclasses.replace(
+        st, right_vector=alpha64.float(),
+        gamma=torch.stack([st.gamma[0], st.gamma[1], mbar64.float()]))
+    rel = lambda u: float((u.double().reshape(-1, 1) - exact).norm() / exact.norm())  # noqa: E731
+    e32 = rel(gp.predict(x_test))
+    e64 = rel(gp.posterior_u(st64, x_test).u)
     assert abs(e32 - e64) < 0.1 * e64, (e32, e64)

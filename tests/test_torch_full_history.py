@@ -267,7 +267,7 @@ def test_batch_chunking_keeps_rows(carried):
 def test_unported_options_raise(carried):
     eq, gp = carried["eq"], carried["gp"]
     with pytest.raises(NotImplementedError):
-        port.ScaSMLFullHistory(eq, gp, variance_guard=True)
+        port.ScaSMLFullHistory(eq, gp, terminal_crn=True)
     with pytest.raises(NotImplementedError):
         port.ScaSMLFullHistory(eq, gp, mesh=object())
     with pytest.raises(NotImplementedError):

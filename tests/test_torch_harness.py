@@ -153,7 +153,7 @@ def _small_argv(tmp_path, *extra, device="cpu"):
 @pytest.mark.parametrize("extra", [
     ["--harness", "ConvergenceRate"],
     ["--harness", "ComputingBudget"],
-    ["--equation", "HJB"],
+    ["--harness", "InferenceScaling"],
     ["--fit-ml"],
     ["--mesh-data", "2"],
     ["--mesh-model", "4"],

@@ -120,9 +120,9 @@ def test_quadrature_weights_integrate_constant_forcing():
 def test_unported_options_raise(carried):
     eq, gp = carried["eq"], carried["gp"]
     with pytest.raises(NotImplementedError):
-        port.ScaSML(eq, gp, variance_guard=True)
+        port.ScaSML(eq, gp, terminal_crn=True)
     with pytest.raises(NotImplementedError):
-        port.ScaSML(eq, gp, adaptive_clip=2.0)
+        port.ScaSML(eq, gp, mesh=object())
     with pytest.raises(NotImplementedError):
         port.MLP(eq, terminal_crn=True)
 
