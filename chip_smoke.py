@@ -9,7 +9,8 @@ Phases, each printing its own lines:
               version (posterior_block) on the bench GP's training set and
               trained weights (d=20, N=1000, Nb=200), for
               n in {1200, 2400, 4800, 1337}, all four (want_grad, want_ops)
-              specialisations and two gammas, at rtol = atol = 2e-4; CUDA-event
+              specialisations and two gammas, at rtol = atol = 2e-4, each
+              case launched twice with bitwise equal results; CUDA-event
               times of kernel and plain at the main path's three
               specialisations and shapes.
   4. main:    the bench workload on the port: GradDependentNonlinear d=20,
@@ -40,6 +41,15 @@ Phases, each printing its own lines:
               Allen-Cahn paths), rel-L2 of GP, MLP and SCaSML, the guard's
               lambda and ladder, and per-call times of the semigroup
               surrogates' feature blocks.
+Kernel times are CUDA-event times of calls back to back as a caller sees
+them (``ms`` and ``plain_ms``, the host's launch cost included, as in every
+earlier version of this script) and with the stream held until every call is
+enqueued (``device_ms``, the device's time alone).  Each kernel record gives
+the bound (``scasml_gp_torch.measure.bound``: the call's float32 operations
+in the norm form over the 67 TFLOP/s peak, or its bytes over 3.35 TB/s,
+whichever is larger) and the kernel's share of it, ``bound_ms /
+device_ms``; no single PyTorch call computes the posterior, so
+``library_ms`` is null.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero; there
 is no CPU path.  Imports neither JAX nor the JAX package.
@@ -48,6 +58,7 @@ is no CPU path.  Imports neither JAX nor the JAX package.
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -130,19 +141,24 @@ def by_flags_str(d):
     return {f"{k[0]:d}{k[1]:d}": v for k, v in sorted(d.items())}
 
 
-def compare_kernel(x, fused, x_dom, x_bdy, r, gamma, d, flags, what):
+def compare_kernel(x, fused, x_dom, x_bdy, r, gamma, d, flags, what,
+                   repeat=False):
     """Launch the kernel and its plain version on x; raise on any element
-    outside rtol = atol = 2e-4; return the max abs error."""
+    outside rtol = atol = 2e-4 (and with ``repeat`` unless a second launch
+    gives the same bits); return the max abs error."""
     import torch
 
     from scasml_gp_torch.gp import fused_posterior as fp
     from scasml_gp_torch.gp.posterior import posterior_block
 
     got = fp.fused_posterior(x, fused, *flags)
+    again = fp.fused_posterior(x, fused, *flags) if repeat else got
     ref = posterior_block(x, x_dom, x_bdy, r, gamma, d, *flags)
     torch.cuda.synchronize()
     worst = 0.0
-    for name, a, b in zip(ref._fields, got, ref):
+    for name, a, a2, b in zip(ref._fields, got, again, ref):
+        check(a2 is None or torch.equal(a, a2),
+              f"two launches differ in {name} ({what}, flags {flags})")
         check((a is None) == (b is None), f"{name} presence differs")
         if b is None:
             continue
@@ -154,6 +170,31 @@ def compare_kernel(x, fused, x_dom, x_bdy, r, gamma, d, flags, what):
               f"want_ops={flags[1]}): max err {float(err.max()):.3g}")
         worst = max(worst, float(err.max()))
     return worst
+
+
+def kernel_record(x, fused, flags, plain, max_abs_err):
+    """Times of the kernel (back to back and device) and of ``plain`` (back
+    to back) on x, with the call's bound and the kernel's share of it."""
+    from scasml_gp_torch.gp import fused_posterior as fp
+    from scasml_gp_torch.measure import bound, event_ms
+
+    def kernel():
+        return fp.fused_posterior(x, fused, *flags)
+
+    device_ms = event_ms(kernel, device_bound=True)
+    b_ms, b_by = bound(x.shape[0], fused.y.shape[0], fused.dim + 1, *flags)
+    return {"rows": x.shape[0], "F": fused.dim + 1,
+            "splits": fp.launch_plan(x, fused, *flags).splits,
+            "max_abs_err": max_abs_err, "ms": event_ms(kernel), "device_ms": device_ms,
+            "plain_ms": event_ms(plain), "bound_ms": b_ms, "bound_by": b_by,
+            "share_of_bound": b_ms / device_ms, "library_ms": None}
+
+
+def describe(rec):
+    return (f"kernel {rec['ms']:.4f} ms back to back (device {rec['device_ms']:.4f}; "
+            f"S={rec['splits']}), plain {rec['plain_ms']:.4f} ms, bound "
+            f"{1e3 * rec['bound_ms']:.2f} us ({rec['bound_by']}), share of it on "
+            f"the device {rec['share_of_bound']:.3f}, max abs err {rec['max_abs_err']:.3g}")
 
 
 def runner_phase(dev, smi):
@@ -246,15 +287,11 @@ def runner_phase(dev, smi):
         x = eq.geometry().sample_domain(gen_x, n, device=dev)
         err = compare_kernel(x, fused, st.x_dom, st.x_bdy, st.right_vector,
                              st.gamma, D, flags, f"tuned full-history GP, n={n}")
-        k_ms = event_ms(lambda: fp.fused_posterior(x, fused, *flags))
-        p_ms = event_ms(lambda: posterior_block(
-            x, st.x_dom, st.x_bdy, st.right_vector, st.gamma, D, *flags))
-        records[flags] = {"rows": n, "max_abs_err": err, "ms": k_ms,
-                          "plain_ms": p_ms}
+        records[flags] = kernel_record(x, fused, flags, lambda: posterior_block(
+            x, st.x_dom, st.x_bdy, st.right_vector, st.gamma, D, *flags), err)
         print(f"[runner] {smi}; kernel {caller} (want_grad={flags[0]:d}, "
-              f"want_ops={flags[1]:d}) n={n}, tuned weights: kernel "
-              f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, max abs err {err:.3g}",
-              flush=True)
+              f"want_ops={flags[1]:d}) n={n}, tuned weights: "
+              f"{describe(records[flags])}", flush=True)
 
     check(tune_launches == EXPECTED_TUNE_LAUNCHES,
           f"tune launches {tune_launches} != {EXPECTED_TUNE_LAUNCHES}")
@@ -391,17 +428,13 @@ def extra_phase(dev, smi):
         err = compare_kernel(x, fused, st.x_dom, st.x_bdy, st.right_vector,
                              st.gamma, EXTRA_D, flags,
                              f"tuned Sine GP d={EXTRA_D}, n={n}")
-        k_ms = event_ms(lambda: fp.fused_posterior(x, fused, *flags))
-        p_ms = event_ms(lambda: posterior_block(
-            x, st.x_dom, st.x_bdy, st.right_vector, st.gamma, EXTRA_D, *flags))
-        records[flags] = {"rows": n, "max_abs_err": err, "ms": k_ms,
-                          "plain_ms": p_ms,
-                          "launches": {"tune": tune_launches.get(flags, 0),
-                                       "run": run_launches.get(flags, 0)}}
+        records[flags] = kernel_record(x, fused, flags, lambda: posterior_block(
+            x, st.x_dom, st.x_bdy, st.right_vector, st.gamma, EXTRA_D, *flags), err)
+        records[flags]["launches"] = {"tune": tune_launches.get(flags, 0),
+                                      "run": run_launches.get(flags, 0)}
         print(f"[extra] Sine d={EXTRA_D} kernel (want_grad={flags[0]:d}, "
-              f"want_ops={flags[1]:d}) n={n}, F={EXTRA_D + 1}: kernel "
-              f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, max abs err {err:.3g} "
-              f"({smi})", flush=True)
+              f"want_ops={flags[1]:d}) n={n}, F={EXTRA_D + 1}: "
+              f"{describe(records[flags])} ({smi})", flush=True)
 
     # 6b. HJB, the CLI default: the exact Bernstein-mixture surrogate
     config = config_for("HJB")
@@ -523,9 +556,23 @@ def main():
     path = build.build()
     build.load_library()
     print(f"[build] {path} in {time.perf_counter() - t0:.2f} s", flush=True)
+    # ptxas -v per kernel: registers and spills of each specialisation
+    kernel, spills, spill_bytes = None, 0, "?"
     for line in build.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build] ptxas: {line.strip()}", flush=True)
+        m = re.search(r"fused_posterior_(kernel|reduce)(?:ILb(\d)ELb(\d)ELi(\d+)E)?", line)
+        if "Compiling entry function" in line and m:
+            kernel = (f"fused_posterior_{m.group(1)}" + (
+                f"<grad={m.group(2)}, ops={m.group(3)}, NC={m.group(4)}>"
+                if m.group(2) else ""))
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spills += int(m.group(1)) > 0
+            spill_bytes = m.group(1)
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            print(f"[build] ptxas: {kernel}: {m.group(1)} registers, "
+                  f"{spill_bytes} bytes spill stores", flush=True)
+    print(f"[build] specialisations that spill: {spills}", flush=True)
 
     # The bench workload's GP, trained once here: its representer weights
     # are the values the kernel meets on the main path.  (Random N(0, 1)
@@ -554,23 +601,22 @@ def main():
         for n, x in xs.items():
             for flags in FLAGS:
                 err = compare_kernel(x, fused, x_dom, x_bdy, r, gamma, D, flags,
-                                     f"{gname}, n={n}")
+                                     f"{gname}, n={n}", repeat=True)
                 max_err[flags] = max(max_err[flags], err)
     print(f"[kernel] 2 gammas x {len(ROWS)} row counts x 4 specialisations "
-          f"agree with posterior_block at rtol=atol={RTOL}; max abs err by "
-          f"(want_grad, want_ops): {by_flags_str(max_err)}", flush=True)
+          f"agree with posterior_block at rtol=atol={RTOL} and repeat bitwise; "
+          f"max abs err by (want_grad, want_ops): {by_flags_str(max_err)}",
+          flush=True)
 
     gamma = gammas["isotropic"]
     fused = fp.prepare_inputs(x_dom, x_bdy, r, gamma, D)
     times = {}
     for flags, (caller, n) in MAIN_SPECS.items():
         x = xs[n]
-        k_ms = event_ms(lambda: fp.fused_posterior(x, fused, *flags))
-        p_ms = event_ms(lambda: posterior_block(
-            x, x_dom, x_bdy, r, gamma, D, *flags))
-        times[flags] = (k_ms, p_ms)
+        times[flags] = kernel_record(x, fused, flags, lambda: posterior_block(
+            x, x_dom, x_bdy, r, gamma, D, *flags), max_err[flags])
         print(f"[kernel] {caller} (want_grad={flags[0]:d}, want_ops={flags[1]:d}) "
-              f"n={n}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms", flush=True)
+              f"n={n}: {describe(times[flags])}", flush=True)
 
     # 4. main path: the bench workload
     train_ms = event_ms(lambda: gp.GPsolver(x_dom, x_bdy), k=5,
@@ -622,21 +668,23 @@ def main():
     # 6. the three other PDE families at d=100
     extra = extra_phase(dev, smi)
 
-    kernels = [
-        {
+    kernels = []
+    for f, (caller, _) in MAIN_SPECS.items():
+        rec = {
             "name": f"fused_posterior[{caller}: want_grad={f[0]:d} want_ops={f[1]:d}]",
             "route": "cuda",
             "source": "scasml_gp_torch/csrc/fused_posterior.cu",
             "replaces": REPLACES,
             "launches": by_flags.get(f, 0),
-            "max_abs_err": max_err[f],
-            "ms": times[f][0],
-            "plain_ms": times[f][1],
+            **{k: times[f][k] for k in ("max_abs_err", "ms", "plain_ms",
+                                        "bound_ms", "bound_by", "share_of_bound",
+                                        "library_ms", "device_ms", "rows", "splits")},
             "full_history": fh[f],
             "sine_d100": extra[f],
         }
-        for f, (caller, _) in MAIN_SPECS.items()
-    ]
+        if f == (True, False):  # the gradient kernel with the operators on too
+            rec["sine_d100_with_ops"] = extra[(True, True)]
+        kernels.append(rec)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -3,7 +3,8 @@
 Port of ``scasml_gp_tpu/equations/base.py``.  Conventions are the same:
 rows index samples, columns index dimensions, the LAST input column is time,
 and ``z`` excludes time.  Every sampler takes the generator it draws from and
-the device its result lives on; nothing reads global RNG state.
+the device its result lives on (by default the generator's); nothing reads
+global RNG state.
 """
 
 from __future__ import annotations
@@ -28,26 +29,29 @@ class HypercubeGeometry:
         self.t0 = float(t0)
         self.T = float(T)
 
-    def sample_domain(self, gen: torch.Generator, num: int, device="cpu",
+    def sample_domain(self, gen: torch.Generator, num: int, device=None,
                       dtype=torch.float32) -> torch.Tensor:
         """Uniform interior points, shape (num, dim + 1)."""
+        device = gen.device if device is None else device
         x = _uniform(gen, (num, self.dim), -self.radius, self.radius, device,
                      dtype)
         t = _uniform(gen, (num, 1), self.t0, self.T, device, dtype)
         return torch.cat([x, t], dim=1)
 
-    def sample_terminal(self, gen: torch.Generator, num: int, device="cpu",
+    def sample_terminal(self, gen: torch.Generator, num: int, device=None,
                         dtype=torch.float32) -> torch.Tensor:
         """Uniform points on the terminal surface Omega x {T}."""
+        device = gen.device if device is None else device
         x = _uniform(gen, (num, self.dim), -self.radius, self.radius, device,
                      dtype)
         t = torch.full((num, 1), self.T, device=device, dtype=dtype)
         return torch.cat([x, t], dim=1)
 
-    def sample_boundary(self, gen: torch.Generator, num: int, device="cpu",
+    def sample_boundary(self, gen: torch.Generator, num: int, device=None,
                         dtype=torch.float32) -> torch.Tensor:
         """Uniform points on the lateral boundary: a uniformly chosen facet,
         uniform within it, uniform in time."""
+        device = gen.device if device is None else device
         x = _uniform(gen, (num, self.dim), -self.radius, self.radius, device,
                      dtype)
         facet = torch.randint(0, self.dim, (num,), generator=gen,
@@ -119,7 +123,7 @@ class Equation:
 
     def generate_data(
         self, num_domain: int, num_boundary: int, gen: torch.Generator,
-        device="cpu", dtype=torch.float32,
+        device=None, dtype=torch.float32,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(domain points, boundary points) for training."""
         return self._sample(self.geometry(), gen, num_domain, num_boundary,
@@ -127,7 +131,7 @@ class Equation:
 
     def generate_test_data(
         self, num_domain: int, num_boundary: int, gen: torch.Generator,
-        device="cpu", dtype=torch.float32,
+        device=None, dtype=torch.float32,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(domain points, boundary points) for testing."""
         return self._sample(self.test_geometry(), gen, num_domain,

@@ -149,7 +149,7 @@ class GPHJBColeHopf(TerminalSemigroupGP):
     """Semigroup GP surrogate for HJB.  ``v_floor`` guards the log and the
     divisions against a non-positive v far from data."""
 
-    def __init__(self, equation, config=None, precision=None, device="cpu",
+    def __init__(self, equation, config=None, precision=None, device=None,
                  v_floor: float = 1e-4, width: Optional[float] = None,
                  fit_nugget: float = 1e-4, terminal_backend: str = "auto"):
         super().__init__(equation, config, precision=precision, device=device)

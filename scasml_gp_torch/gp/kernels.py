@@ -45,27 +45,33 @@ class PairStats(NamedTuple):
     dt: torch.Tensor     # (n, m) time difference x_t - y_t
 
 
+def row_stats(x: torch.Tensor) -> torch.Tensor:
+    """(n, 3) per row: |x|^2, the spatial sum and the time, the row side of
+    the norm form of ``pair_stats``."""
+    return torch.stack(
+        [torch.sum(x * x, dim=1), torch.sum(x[:, :-1], dim=1), x[:, -1]], dim=1)
+
+
 def pair_stats(x: torch.Tensor, y: torch.Tensor, gamma,
-               operand_dtype=torch.float32) -> PairStats:
+               operand_dtype=torch.float32, y_stats=None) -> PairStats:
     """Pair statistics from one x @ y^T product in float32.
 
     r^2 is formed as |x|^2 + |y|^2 - 2 x.y and clamped at 0, as in the JAX
     package; this is why the port must not run float32 products in TF32.
     ``operand_dtype=torch.bfloat16`` rounds the operands to bf16 first
     (products of bf16 values are exact in float32, so this equals bf16
-    operands with float32 accumulation)."""
+    operands with float32 accumulation).  ``y_stats`` may carry
+    ``row_stats(y)`` computed once for a fixed y."""
     gs, gt, gr = split_gamma(gamma)
     x = x.to(operand_dtype).to(torch.float32)
     y = y.to(operand_dtype).to(torch.float32)
+    xs = row_stats(x)
+    ys = row_stats(y) if y_stats is None else y_stats
     xy = x @ y.T
-    r2 = (
-        torch.sum(x * x, dim=1)[:, None]
-        + torch.sum(y * y, dim=1)[None, :]
-        - 2.0 * xy
-    )
+    r2 = xs[:, 0][:, None] + ys[:, 0][None, :] - 2.0 * xy
     r2 = torch.clamp_min(r2, 0.0)
-    dt = x[:, -1][:, None] - y[:, -1][None, :]
-    s = torch.sum(x[:, :-1], dim=1)[:, None] - torch.sum(y[:, :-1], dim=1)[None, :]
+    dt = xs[:, 2][:, None] - ys[:, 2][None, :]
+    s = xs[:, 1][:, None] - ys[:, 1][None, :]
     q = torch.clamp_min(r2 - dt * dt, 0.0)
     kappa = torch.exp(-0.5 * (gs * q + gr * s * s + gt * dt * dt))
     return PairStats(kappa=kappa, q=q, s=s, dt=dt)

@@ -105,7 +105,7 @@ class GPAllenCahnSemigroup(TerminalSemigroupGP):
 
     form_cls = AllenCahnForm
 
-    def __init__(self, equation, config=None, precision=None, device="cpu",
+    def __init__(self, equation, config=None, precision=None, device=None,
                  width: Optional[float] = None, fit_nugget: float = 1e-4,
                  reaction: Optional[float] = None,
                  terminal_backend: str = "auto"):

@@ -25,6 +25,7 @@ from scasml_gp_torch.gp.kernels import kernel_gammas
 from scasml_gp_torch.gp.posterior import posterior_eval
 from scasml_gp_torch.gp.state import GPState
 from scasml_gp_torch.gp.variance import factor_for_variance, posterior_variance
+from scasml_gp_torch.utils.device import resolve_device
 
 
 class GPForm:
@@ -142,11 +143,11 @@ class GP:
     form_cls = None
 
     def __init__(self, equation: Equation, config: Optional[GPConfig] = None,
-                 precision: Optional[PrecisionPolicy] = None, device="cpu"):
+                 precision: Optional[PrecisionPolicy] = None, device=None):
         self.equation = equation
         self.config = config or GPConfig()
         self.precision = precision or PrecisionPolicy()
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         cfg = self.config
         if cfg.laplacian != "exact" or cfg.parity_fp16:
             raise NotImplementedError(

@@ -15,6 +15,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from scasml_gp_torch.utils.device import resolve_device
+
 FIELDS = ("x_dom", "x_bdy", "right_vector", "sol", "gamma", "loss_history")
 
 
@@ -71,6 +73,7 @@ def save_state(path: str, state: GPState) -> None:
     np.savez(path, **{k: getattr(state, k).detach().cpu().numpy() for k in FIELDS})
 
 
-def load_state(path: str, device="cpu") -> GPState:
+def load_state(path: str, device=None) -> GPState:
+    """The state saved at ``path``, on ``device`` (by default the card)."""
     with np.load(path) as data:
-        return state_from_numpy({k: data[k] for k in FIELDS}, device)
+        return state_from_numpy({k: data[k] for k in FIELDS}, resolve_device(device))

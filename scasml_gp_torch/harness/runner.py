@@ -29,6 +29,7 @@ from scasml_gp_torch.harness.repeated import RepeatedExperiment
 from scasml_gp_torch.harness.simple_uniform import SimpleUniform
 from scasml_gp_torch.picard.mlp import MLP, MLPFullHistory
 from scasml_gp_torch.picard.scasml import ScaSML, ScaSMLFullHistory
+from scasml_gp_torch.utils.device import resolve_device
 
 HARNESSES = {
     "SimpleUniform": SimpleUniform,
@@ -52,16 +53,6 @@ GP_CLASSES = {
 # gamma_scale is the big lever at low d; 5 x 4 = 20 candidates.
 TUNE_RIDGE_SCALES = (0.0, 10.0, 30.0, 100.0, 300.0)
 TUNE_GAMMA_SCALES = (1.0, 0.3, 0.1, 0.05)
-
-
-def resolve_device(device) -> torch.device:
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "CUDA was asked for but torch.cuda.is_available() is false; "
-            "pass --device cpu (device='cpu') to run on the CPU"
-        )
-    return dev
 
 
 def check_ported(config: RunConfig) -> None:

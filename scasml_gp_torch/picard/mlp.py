@@ -24,6 +24,7 @@ from scasml_gp_torch.picard.schedule import (
     count_evaluations_full_history,
     count_evaluations_quadrature,
 )
+from scasml_gp_torch.utils.device import resolve_device
 
 
 class _PicardBase:
@@ -35,7 +36,7 @@ class _PicardBase:
                  time_sampling: Optional[str] = None,
                  precision: Optional[PrecisionPolicy] = None,
                  mesh=None, debug_checks: bool = False,
-                 device="cpu", seed: int = 0,
+                 device=None, seed: int = 0,
                  terminal_crn: bool = False,
                  reference_semantics: bool = False):
         if terminal_crn is not False or reference_semantics:
@@ -67,7 +68,7 @@ class _PicardBase:
         self.n_output = equation.n_output
         self.dim = equation.n_input - 1
         self.evaluation_counter = 0
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.gen = torch.Generator(device=self.device).manual_seed(int(seed))
         self.batch_chunk = batch_chunk
         self._cache: Dict[Tuple, Callable] = {}

@@ -97,20 +97,24 @@ def build() -> str:
 def load_library() -> ctypes.CDLL:
     """The loaded kernel library, building it on first use."""
     global _lib
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is not None:
             return _lib
-        path = build()
-        lib = ctypes.CDLL(path)  # raises OSError with the loader's message
-        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.scasml_fused_posterior.argtypes = [
-            ci, ci, vp, vp, vp, ci, ci, ci, cf, cf, cf,
-            vp, vp, vp, vp, vp, vp,
-        ]
-        lib.scasml_fused_posterior.restype = ci
-        lib.scasml_fused_posterior_max_features.argtypes = []
-        lib.scasml_fused_posterior_max_features.restype = ci
-        lib.scasml_cuda_error_string.argtypes = [ci]
-        lib.scasml_cuda_error_string.restype = ctypes.c_char_p
-        _lib = lib
+        _lib = bind(ctypes.CDLL(build()))  # raises OSError with the loader's message
         return _lib
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C signatures of the library's entry points."""
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.scasml_fused_posterior.argtypes = [
+        ci, ci, ci, vp, vp, ci, ci, ci, cf, cf, cf, ci, vp, vp, vp]
+    lib.scasml_fused_posterior.restype = ci
+    lib.scasml_fused_posterior_occupancy.argtypes = [
+        ci, ci, ci, ctypes.POINTER(ci)]
+    lib.scasml_fused_posterior_occupancy.restype = ci
+    lib.scasml_cuda_error_string.argtypes = [ci]
+    lib.scasml_cuda_error_string.restype = ctypes.c_char_p
+    return lib

@@ -53,7 +53,7 @@ def carried(request):
     x_dom, x_bdy = eq_j.generate_data(150, 40, key=jax.random.PRNGKey(3))
     gp_j.GPsolver(x_dom, x_bdy)
     eq_t = port.HJB(n_input=D + 1)
-    gp_t = port.GPHJBColeHopf(eq_t, terminal_backend=backend)
+    gp_t = port.GPHJBColeHopf(eq_t, terminal_backend=backend, device="cpu")
     gp_t.state = state_from_numpy(
         {k: np.asarray(v) for k, v in gp_j.state._asdict().items()}, "cpu")
     return gp_j, gp_t, np.array(x_dom), np.array(x_bdy)
@@ -132,13 +132,13 @@ def test_constructor_matches_jax(d):
     eq_j, eq_t = JaxHJB(n_input=d + 1), port.HJB(n_input=d + 1)
     for backend in ("auto", "rbf"):
         gp_j = jch.GPHJBColeHopf(eq_j, terminal_backend=backend)
-        gp_t = port.GPHJBColeHopf(eq_t, terminal_backend=backend)
+        gp_t = port.GPHJBColeHopf(eq_t, terminal_backend=backend, device="cpu")
         for name in ("k", "sig2", "v_floor", "fit_nugget", "width",
                      "terminal_backend", "eval_chunk"):
             assert getattr(gp_t, name) == getattr(gp_j, name), name
     with pytest.raises(ValueError):
         port.GPHJBColeHopf(port.GradDependentNonlinear(n_input=d + 1),
-                           terminal_backend="mixture")
+                           terminal_backend="mixture", device="cpu")
 
 
 def test_rbf_gp_accuracy_against_the_oracle():
@@ -146,7 +146,7 @@ def test_rbf_gp_accuracy_against_the_oracle():
     generator) against the port's Cole-Hopf oracle: the JAX test's bar,
     rel-L2 < 0.08 at d=4 (tests/test_extra_equations.py)."""
     eq = port.HJB(n_input=D + 1)
-    gp = port.GPHJBColeHopf(eq, terminal_backend="rbf")
+    gp = port.GPHJBColeHopf(eq, terminal_backend="rbf", device="cpu")
     x_dom, x_bdy = eq.generate_data(500, 100, torch.Generator().manual_seed(3))
     gp.GPsolver(x_dom, x_bdy)
     x = eq.geometry().sample_domain(torch.Generator().manual_seed(4), 256)
@@ -161,7 +161,7 @@ def test_guarded_scasml_repairs_the_coarse_rbf_surrogate():
     its schedule from the ladder [(1, 8), (2, 8)], beats 0.6 x GP and the
     plain MLP at the same budget."""
     eq = port.HJB(n_input=D + 1)
-    gp = port.GPHJBColeHopf(eq, port.GPConfig(gn_steps=6), terminal_backend="rbf")
+    gp = port.GPHJBColeHopf(eq, port.GPConfig(gn_steps=6), terminal_backend="rbf", device="cpu")
     x_dom, x_bdy = eq.generate_data(80, 20, torch.Generator().manual_seed(30))
     gp.GPsolver(x_dom, x_bdy)
     x = eq.geometry().sample_domain(torch.Generator().manual_seed(6), 128)
@@ -173,7 +173,7 @@ def test_guarded_scasml_repairs_the_coarse_rbf_surrogate():
     u = sca.u_solve(2, None, x, M=8).numpy()
     assert np.isfinite(u).all()
     rel_sca = _rel(u, exact)
-    rel_mlp = _rel(port.MLPFullHistory(eq).u_solve(2, None, x, M=8).numpy(), exact)
+    rel_mlp = _rel(port.MLPFullHistory(eq, device="cpu").u_solve(2, None, x, M=8).numpy(), exact)
     assert rel_sca < 0.6 * rel_gp, (rel_sca, rel_gp, sca.last_ladder)
     assert rel_sca < rel_mlp, (rel_sca, rel_mlp)
     assert sca.last_lambda >= 0.5

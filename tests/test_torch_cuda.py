@@ -8,7 +8,8 @@ hence --noconftest):
     python -m pytest tests/test_torch_cuda.py --noconftest -m cuda
 
 Tolerance: rtol = atol = 2e-4, the posterior's bar (tests/test_pallas.py);
-kernel and plain version differ in summation order and in how r^2 is formed.
+kernel and plain version compute r^2 in the same norm form and differ in
+summation order.
 """
 
 import dataclasses
@@ -24,6 +25,10 @@ D, N_DOM, N_BDY = 6, 70, 30
 GAMMAS = [kernel_gamma(0.25, D),
           kernel_gammas(0.25, D, time_scale=0.6, ridge_scale=5.0)]
 FLAGS = [(False, False), (True, False), (False, True), (True, True)]
+# (d, interior rows, boundary rows): F = 21 and 101 as on the main path, and
+# the widest F = 256; m = 200 is no multiple of the 64-row tile.
+WIDTHS = [(20, 150, 50), (100, 150, 50), (255, 150, 50)]
+ROWS = (301, 1337)
 
 
 @pytest.fixture
@@ -52,6 +57,103 @@ def test_kernel_matches_plain(problem, want_grad, want_ops):
                 assert a is None, name
                 continue
             torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-4, msg=name)
+
+
+@pytest.fixture(scope="module")
+def trained():
+    """GPs trained on the card at each width of WIDTHS, cached per width:
+    trained representer weights keep the outputs at the size the kernel
+    meets on the main path."""
+    cache = {}
+
+    def get(d, n_dom, n_bdy):
+        if not torch.cuda.is_available():
+            pytest.skip("needs a CUDA device")
+        if d not in cache:
+            import scasml_gp_torch as port
+
+            dev = torch.device("cuda", 0)
+            eq = port.GradDependentNonlinear(n_input=d + 1)
+            x_dom, x_bdy = eq.generate_data(
+                n_dom, n_bdy, torch.Generator(device=dev).manual_seed(d), device=dev)
+            gp = port.GPGradDependentNonlinear(eq, port.GPConfig(gn_steps=8), device=dev)
+            gp.GPsolver(x_dom, x_bdy)
+            cache[d] = (eq, gp.state)
+        return cache[d]
+
+    return get
+
+
+def _forced_plan(monkeypatch, sm_count):
+    """Launch with plan(..., sm_count, blocks_per_sm=1): sm_count = 1 gives
+    one split (S = 1), a large sm_count one split per training tile."""
+    monkeypatch.setattr(
+        fp, "launch_plan",
+        lambda x, fused, g, o: fp.plan(x.shape[0], fused.y.shape[0], fused.dim + 1,
+                                       sm_count, 1, g, o))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,n_dom,n_bdy", WIDTHS)
+@pytest.mark.parametrize("sm_count", [1, None, 100000], ids=["S=1", "planned", "S=tiles"])
+def test_kernel_matches_plain_at_width(trained, monkeypatch, d, n_dom, n_bdy, sm_count):
+    """Ragged n and m, F = 21, 101 and 256, one split, the planned splits and
+    one split per tile, all four specialisations, at 2e-4."""
+    eq, st = trained(d, n_dom, n_bdy)
+    if sm_count is not None:
+        _forced_plan(monkeypatch, sm_count)
+    fused = st.fused_inputs()
+    gen = torch.Generator(device=st.x_dom.device).manual_seed(1)
+    for n in ROWS:
+        x = eq.geometry().sample_domain(gen, n, device=st.x_dom.device)
+        p = fp.launch_plan(x, fused, True, True)
+        if sm_count == 1:
+            assert p.splits == 1
+        elif sm_count is not None:
+            assert p.splits == p.tiles == 4
+        for flags in FLAGS:
+            got = fp.fused_posterior(x, fused, *flags)
+            want = posterior_block(x, st.x_dom, st.x_bdy, st.right_vector, st.gamma,
+                                   d, *flags)
+            for name, a, b in zip(want._fields, got, want):
+                if b is None:
+                    assert a is None, name
+                    continue
+                torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-4,
+                                           msg=f"{name} n={n} flags={flags}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,n_dom,n_bdy", WIDTHS)
+def test_kernel_is_bitwise_repeatable(trained, d, n_dom, n_bdy):
+    """Two launches on the same inputs give the same bits (no atomics; the
+    splits are added in a fixed order)."""
+    eq, st = trained(d, n_dom, n_bdy)
+    fused = st.fused_inputs()
+    x = eq.geometry().sample_domain(torch.Generator(device=st.x_dom.device).manual_seed(2),
+                                    1337, device=st.x_dom.device)
+    assert fp.launch_plan(x, fused, True, True).splits > 1
+    for flags in FLAGS:
+        first = fp.fused_posterior(x, fused, *flags)
+        second = fp.fused_posterior(x, fused, *flags)
+        for name, a, b in zip(first._fields, first, second):
+            if a is not None:
+                assert torch.equal(a, b), (name, flags)
+
+
+@pytest.mark.cuda
+def test_plan_matches_the_kernel_layout():
+    """The occupancy the wrapper reads from the runtime fits at least one
+    block per SM, and no more than plan()'s shared memory per block allows
+    (228 KB an SM, 1 KB of it reserved per block), at every width and
+    specialisation."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    for F in (2, 21, 101, 256):
+        for g in (False, True):
+            by_smem = 233472 // (fp.smem_bytes(F, g) + 1024)
+            for o in (False, True):
+                assert 1 <= fp._occupancy(0, g, o, F) <= by_smem
 
 
 @pytest.mark.cuda

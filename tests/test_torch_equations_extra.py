@@ -167,7 +167,7 @@ def test_collocation_gp_trains_to_the_jax_result(cls, name):
     gp_j = getattr(jsolver, cls)(ej, jsolver.GPConfig(gn_steps=STEPS))
     gp_j.GPsolver(jnp.asarray(x_dom), jnp.asarray(x_bdy))
     sol0 = np.array(jax.random.normal(jax.random.PRNGKey(0), (3 * N,))) * 1e-3
-    gp_t = getattr(port.gp, cls)(et, port.GPConfig(gn_steps=STEPS))
+    gp_t = getattr(port.gp, cls)(et, port.GPConfig(gn_steps=STEPS), device="cpu")
     gp_t.GPsolver(torch.from_numpy(x_dom), torch.from_numpy(x_bdy),
                   sol0=torch.from_numpy(sol0.astype(np.float32)))
     np.testing.assert_allclose(gp_t.state.loss_history.numpy(),

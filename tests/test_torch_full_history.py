@@ -44,7 +44,7 @@ def carried():
     x_test, _ = eq_j.generate_test_data(200, 1, key=jax.random.PRNGKey(4))
 
     eq = port.GradDependentNonlinear(n_input=D + 1)
-    gp = port.GPGradDependentNonlinear(eq)
+    gp = port.GPGradDependentNonlinear(eq, device="cpu")
     gp.state = state_from_numpy(
         {k: np.asarray(v) for k, v in gp_j.state._asdict().items()}, "cpu")
     x_np = np.array(x_test)
@@ -98,7 +98,7 @@ def test_full_history_linear_pde_matches_mc_oracle(eq_cls, sampling):
     eq = eq_cls(n_input=D + 1)
     eq.norm_estimation = 100.0
     x_t = 0.9 * torch.rand((64, D + 1), generator=torch.Generator().manual_seed(0)) - 0.5
-    u = port.MLPFullHistory(eq, time_sampling=sampling).u_solve(
+    u = port.MLPFullHistory(eq, time_sampling=sampling, device="cpu").u_solve(
         1, None, x_t, M=4096).numpy().ravel()
     exact = eq.exact_solution(x_t).numpy().ravel()
     dT = 0.5 - x_t[:, -1].numpy()
@@ -111,7 +111,7 @@ def test_terminal_time_is_deterministic():
     eq = port.GradDependentNonlinear(n_input=D + 1)
     x = torch.rand((16, D), generator=torch.Generator().manual_seed(1)) - 0.5
     x_t = torch.cat([x, torch.full((16, 1), eq.T)], dim=1)
-    uz = port.MLPFullHistory(eq).uz_solve(2, None, x_t, M=3)
+    uz = port.MLPFullHistory(eq, device="cpu").uz_solve(2, None, x_t, M=3)
     np.testing.assert_allclose(uz[:, 0].numpy(), eq.g(x_t)[:, 0].numpy(),
                                rtol=1e-4, atol=1e-4)
 
@@ -182,7 +182,7 @@ def test_matches_jax_in_distribution(carried, kind, sampling):
                                     time_sampling=sampling)
     else:
         sj = jpicard.MLPFullHistory(carried["eq_j"], time_sampling=sampling)
-        st = port.MLPFullHistory(carried["eq"], seed=100, time_sampling=sampling)
+        st = port.MLPFullHistory(carried["eq"], seed=100, time_sampling=sampling, device="cpu")
     uj = np.stack([np.asarray(sj.u_solve(2, None, xj, M=3)).ravel()
                    for _ in range(R)])
     ut = np.stack([st.u_solve(2, None, carried["x"], M=3).numpy().ravel()
@@ -243,7 +243,7 @@ def test_judge_rollout_makes_five_posterior_calls(carried, monkeypatch):
 
 def test_mlp_counter_matches_jax():
     eq = port.GradDependentNonlinear(n_input=D + 1)
-    solver = port.MLPFullHistory(eq)
+    solver = port.MLPFullHistory(eq, device="cpu")
     solver.u_solve(1, None, torch.zeros((8, D + 1)), M=2)
     assert solver.evaluation_counter == jsched.count_evaluations_full_history(1, 2)
     assert tsched.count_evaluations_full_history(2, 3, True, True) == \
@@ -255,10 +255,10 @@ def test_batch_chunking_keeps_rows(carried):
     differs only by the random numbers drawn."""
     x = carried["x"][:50]
     exact = carried["exact"][:50]
-    for cls, args in ((port.ScaSMLFullHistory, (carried["eq"], carried["gp"])),
-                      (port.MLPFullHistory, (carried["eq"],))):
-        a = cls(*args).u_solve(2, None, x, M=3)
-        b = cls(*args, batch_chunk=16).u_solve(2, None, x, M=3)
+    for cls, args, kw in ((port.ScaSMLFullHistory, (carried["eq"], carried["gp"]), {}),
+                          (port.MLPFullHistory, (carried["eq"],), {"device": "cpu"})):
+        a = cls(*args, **kw).u_solve(2, None, x, M=3)
+        b = cls(*args, batch_chunk=16, **kw).u_solve(2, None, x, M=3)
         assert a.shape == b.shape == (50, 1)
         assert not torch.equal(a, b)
         assert _rel_l2(a.numpy(), exact) < 0.5 and _rel_l2(b.numpy(), exact) < 0.5
@@ -271,8 +271,8 @@ def test_unported_options_raise(carried):
     with pytest.raises(NotImplementedError):
         port.ScaSMLFullHistory(eq, gp, mesh=object())
     with pytest.raises(NotImplementedError):
-        port.MLPFullHistory(eq, debug_checks=True)
+        port.MLPFullHistory(eq, debug_checks=True, device="cpu")
     with pytest.raises(NotImplementedError):
-        port.MLPFullHistory(eq, terminal_crn=True)
+        port.MLPFullHistory(eq, terminal_crn=True, device="cpu")
     # the JAX kwargs at their defaults are accepted
-    port.MLPFullHistory(eq, mesh=None, debug_checks=False)
+    port.MLPFullHistory(eq, mesh=None, debug_checks=False, device="cpu")

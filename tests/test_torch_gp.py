@@ -48,7 +48,7 @@ def trained():
     sol0 = np.array(jax.random.normal(jax.random.PRNGKey(0), (3 * N,))) * 1e-3
 
     eq_t = port.GradDependentNonlinear(n_input=D + 1)
-    gp_t = port.GPGradDependentNonlinear(eq_t, port.GPConfig(gn_steps=STEPS))
+    gp_t = port.GPGradDependentNonlinear(eq_t, port.GPConfig(gn_steps=STEPS), device="cpu")
     gp_t.GPsolver(torch.from_numpy(x_dom), torch.from_numpy(x_bdy),
                   sol0=torch.from_numpy(sol0.astype(np.float32)))
     return gp_j, gp_t, x_test
@@ -100,13 +100,13 @@ def test_unported_train_paths_raise():
     eq = port.GradDependentNonlinear(n_input=D + 1)
     x = torch.zeros((3, D + 1))
     with pytest.raises(NotImplementedError):
-        port.GPGradDependentNonlinear(eq, port.GPConfig(laplacian="subset"))
+        port.GPGradDependentNonlinear(eq, port.GPConfig(laplacian="subset"), device="cpu")
     with pytest.raises(NotImplementedError):
-        port.GPGradDependentNonlinear(eq, port.GPConfig(parity_fp16=True))
-    gp = port.GPGradDependentNonlinear(eq, port.GPConfig(train_backend="distributed"))
+        port.GPGradDependentNonlinear(eq, port.GPConfig(parity_fp16=True), device="cpu")
+    gp = port.GPGradDependentNonlinear(eq, port.GPConfig(train_backend="distributed"), device="cpu")
     with pytest.raises(NotImplementedError):
         gp.GPsolver(x, x)
-    gp = port.GPGradDependentNonlinear(eq, port.GPConfig(dense_phi_max=8))
+    gp = port.GPGradDependentNonlinear(eq, port.GPConfig(dense_phi_max=8), device="cpu")
     with pytest.raises(NotImplementedError):
         gp.GPsolver(x, x)
     with pytest.raises(RuntimeError):

@@ -198,7 +198,7 @@ def carried():
     x_dom, x_bdy = eq_j.generate_data(80, 20, key=jax.random.PRNGKey(0))
     gp_j.GPsolver(x_dom, x_bdy)
     eq = port.GradDependentNonlinear(n_input=D + 1)
-    gp = port.GPGradDependentNonlinear(eq)
+    gp = port.GPGradDependentNonlinear(eq, device="cpu")
     gp.state = state_from_numpy(
         {k: np.asarray(v) for k, v in gp_j.state._asdict().items()}, "cpu")
     x = eq.geometry().sample_domain(torch.Generator().manual_seed(1), 24)
@@ -266,7 +266,7 @@ def test_measured_probe_ratio_on_rollouts(carried):
 def test_adaptive_clip_bounds_the_correction():
     """|u - u_hat| <= k predict_std(x) per point (tests/test_variance.py)."""
     eq = port.GradDependentNonlinear(n_input=D + 1)
-    gp = port.GPGradDependentNonlinear(eq, port.GPConfig(gn_steps=6))
+    gp = port.GPGradDependentNonlinear(eq, port.GPConfig(gn_steps=6), device="cpu")
     gp.GPsolver(*eq.generate_data(100, 24, torch.Generator().manual_seed(0)))
     x = eq.geometry().sample_domain(torch.Generator().manual_seed(4), 32)
     sca = port.ScaSMLFullHistory(eq, gp, adaptive_clip=3.0, seed=9)
@@ -281,7 +281,7 @@ def test_guarded_quadrature_on_the_converged_hjb_surrogate():
     correction is noise, so the guard shrinks it (lambda < 0.9) and the
     output stays within the shrink interval of the GP."""
     eq = port.HJB(n_input=D + 1)
-    gp = port.GPHJBColeHopf(eq)
+    gp = port.GPHJBColeHopf(eq, device="cpu")
     gp.GPsolver(*eq.generate_data(400, 100, torch.Generator().manual_seed(0)))
     sca = port.ScaSML(eq, gp)
     assert sca.variance_guard

@@ -38,10 +38,10 @@ RE_SIZES = dict(rhomax=2, num_domain=60, num_boundary=12, train_domain=60,
 
 def _port_solvers(variant):
     eq = port.GradDependentNonlinear(n_input=D + 1)
-    gp = port.GPGradDependentNonlinear(eq, port.GPConfig(gn_steps=6))
+    gp = port.GPGradDependentNonlinear(eq, port.GPConfig(gn_steps=6), device="cpu")
     if variant == "full_history":
-        return eq, gp, port.MLPFullHistory(eq), port.ScaSMLFullHistory(eq, gp)
-    return eq, gp, port.MLP(eq), port.ScaSML(eq, gp)
+        return eq, gp, port.MLPFullHistory(eq, device="cpu"), port.ScaSMLFullHistory(eq, gp)
+    return eq, gp, port.MLP(eq, device="cpu"), port.ScaSML(eq, gp)
 
 
 def _jax_solvers(variant):
@@ -262,7 +262,7 @@ def test_exact_solution_fallback_to_mc_reference():
             raise NotImplementedError
 
     eq = _NoClosedForm(n_input=3)
-    h = SimpleUniform(eq, port.GPGradDependentNonlinear(eq), None, None)
+    h = SimpleUniform(eq, port.GPGradDependentNonlinear(eq, device="cpu"), None, None)
     x_test, exact = h._test_points(24, 8, seed=0)
     assert x_test.shape == (32, 3) and exact.shape == (32, 1)
     assert np.isfinite(exact).all()

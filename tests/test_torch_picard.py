@@ -76,7 +76,7 @@ def test_terminal_time_is_deterministic():
     eq = port.GradDependentNonlinear(n_input=D + 1)
     x = torch.rand((16, D), generator=torch.Generator().manual_seed(1)) - 0.5
     x_t = torch.cat([x, torch.full((16, 1), eq.T)], dim=1)
-    uz = port.MLP(eq).uz_solve(2, 2, x_t)
+    uz = port.MLP(eq, device="cpu").uz_solve(2, 2, x_t)
     np.testing.assert_allclose(uz[:, 0].numpy(), eq.g(x_t)[:, 0].numpy(),
                                rtol=1e-4, atol=1e-4)
 
@@ -110,7 +110,7 @@ def test_quadrature_weights_integrate_constant_forcing():
     eq = _ConstantForcingEq(n_input=D + 1)
     eq.norm_estimation = 100.0
     x_t = 0.9 * torch.rand((48, D + 1), generator=torch.Generator().manual_seed(5)) - 0.5
-    u = port.MLP(eq).u_solve(1, 2, x_t).numpy().ravel()
+    u = port.MLP(eq, device="cpu").u_solve(1, 2, x_t).numpy().ravel()
     exact = eq.exact_solution(x_t).numpy().ravel()
     dT = 0.5 - x_t[:, -1].numpy()
     tol = 5 * 0.5 * np.sqrt(D * dT / 2) + 1e-3
@@ -124,7 +124,7 @@ def test_unported_options_raise(carried):
     with pytest.raises(NotImplementedError):
         port.ScaSML(eq, gp, mesh=object())
     with pytest.raises(NotImplementedError):
-        port.MLP(eq, terminal_crn=True)
+        port.MLP(eq, terminal_crn=True, device="cpu")
 
 
 # ------------------------------------------------ ScaSML on a carried state
@@ -143,7 +143,7 @@ def carried():
     x_test, _ = eq_j.generate_test_data(200, 1, key=jax.random.PRNGKey(4))
 
     eq = port.GradDependentNonlinear(n_input=D + 1)
-    gp = port.GPGradDependentNonlinear(eq)
+    gp = port.GPGradDependentNonlinear(eq, device="cpu")
     gp.state = state_from_numpy(
         {k: np.asarray(v) for k, v in gp_j.state._asdict().items()}, "cpu")
     x_np = np.array(x_test)

@@ -101,6 +101,21 @@ def test_stacked_boundary_form_matches_plain(problem, want_grad, want_ops):
         _assert_same(got, want)
 
 
+@pytest.mark.parametrize("gname", list(GAMMAS))
+@pytest.mark.parametrize("want_grad,want_ops", FLAGS)
+def test_stacked_with_row_stats_matches_jax(problem, gname, want_grad, want_ops):
+    """The kernel's plain twin on the prepared inputs (the training rows'
+    |y|^2, spatial sum and time precomputed once) gives the JAX package's
+    posterior."""
+    gamma = GAMMAS[gname]
+    x, x_dom, x_bdy, r = _t(*problem)
+    fused = tfp.prepare_inputs(x_dom, x_bdy, r, gamma, D)
+    got = tfp.stacked_posterior(x, fused, want_grad, want_ops)
+    want = jax_posterior_eval(*(jnp.asarray(a) for a in problem), gamma, D,
+                              want_grad=want_grad, want_ops=want_ops)
+    _assert_same(got, want)
+
+
 def test_ragged_rows_and_chunk_path(problem):
     """n = 300 is no multiple of the chunk of 64; the chunked CPU path equals
     one block and the JAX package's chunked evaluation."""
@@ -149,7 +164,7 @@ def test_jax_trained_state_through_npz(jax_gp, tmp_path):
     gp, x_test = jax_gp
     path = str(tmp_path / "state.npz")
     save_state(path, gp.state)
-    st = load_state(path)
+    st = load_state(path, device="cpu")
     assert st.x_dom.dtype == torch.float32 and st.gamma.shape == (3,)
     s = gp.state
     want = jax_posterior_eval(jnp.asarray(x_test), s.x_dom, s.x_bdy,

@@ -47,7 +47,7 @@ def carried(request):
     x_dom, x_bdy = eq_j.generate_data(120, 40, key=jax.random.PRNGKey(0))
     gp_j.GPsolver(x_dom, x_bdy)
     gp_t = port.GPAllenCahnSemigroup(port.AllenCahn(n_input=D + 1),
-                                     terminal_backend=backend)
+                                     terminal_backend=backend, device="cpu")
     gp_t.state = state_from_numpy(
         {k: np.asarray(v) for k, v in gp_j.state._asdict().items()}, "cpu")
     return gp_j, gp_t, np.array(x_dom)
@@ -124,7 +124,7 @@ def test_port_fit_derivatives_residual_and_terminal(backend):
     """On a port-trained surrogate: grad, dt, div and lap equal autograd of
     u; the Allen-Cahn residual is exactly -u^3; u(x, T) = g(x)."""
     eq = port.AllenCahn(n_input=D + 1)
-    gp = port.GPAllenCahnSemigroup(eq, terminal_backend=backend)
+    gp = port.GPAllenCahnSemigroup(eq, terminal_backend=backend, device="cpu")
     x_dom, x_bdy = eq.generate_data(120, 40, torch.Generator().manual_seed(0))
     gp.GPsolver(x_dom, x_bdy)
     x = torch.from_numpy(_x(16, seed=5)).requires_grad_(True)
@@ -158,7 +158,7 @@ def test_scasml_on_the_mixture_does_not_degrade_it():
     from scasml_gp_torch.harness.metrics import mc_reference_solution
 
     eq = port.AllenCahn(n_input=D + 1)
-    gp = port.GPAllenCahnSemigroup(eq)
+    gp = port.GPAllenCahnSemigroup(eq, device="cpu")
     x_dom, x_bdy = eq.generate_data(64, 16, torch.Generator().manual_seed(0))
     gp.GPsolver(x_dom, x_bdy)
     x = torch.from_numpy(_x(128, seed=7))

@@ -107,7 +107,7 @@ def test_train_with_jax_sol0_matches_jax_weights(points, ridge, gscale):
 
     eq = port.GradDependentNonlinear(n_input=D + 1)
     gp = port.GPGradDependentNonlinear(
-        eq, port.GPConfig(gn_steps=STEPS, ridge_scale=ridge, gamma_scale=gscale))
+        eq, port.GPConfig(gn_steps=STEPS, ridge_scale=ridge, gamma_scale=gscale), device="cpu")
     xd_t, xb_t = torch.from_numpy(x_dom), torch.from_numpy(x_bdy)
     got = gp._train(
         xd_t, xb_t, eq.g(xb_t)[:, 0], gp.form.rhs_f(xd_t),
@@ -133,7 +133,7 @@ def test_validation_score_matches_jax(points):
     want = jax_validation_score(gp_j, jnp.asarray(v_dom), jnp.asarray(v_bdy))
 
     eq = port.GradDependentNonlinear(n_input=D + 1)
-    gp = port.GPGradDependentNonlinear(eq, port.GPConfig(gn_steps=6))
+    gp = port.GPGradDependentNonlinear(eq, port.GPConfig(gn_steps=6), device="cpu")
     sol0 = np.array(jax.random.normal(jax.random.PRNGKey(0), (240,))) * 1e-3
     gp.GPsolver(torch.from_numpy(x_dom[:80]), torch.from_numpy(x_bdy[:20]),
                 sol0=torch.from_numpy(sol0.astype(np.float32)))

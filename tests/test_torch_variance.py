@@ -72,7 +72,7 @@ def carried():
     gp_j = JaxGP(eq_j, JaxGPConfig(gn_steps=4))
     x_dom, x_bdy = eq_j.generate_data(60, 14, key=jax.random.PRNGKey(0))
     gp_j.GPsolver(x_dom, x_bdy)
-    gp_t = port.GPGradDependentNonlinear(port.GradDependentNonlinear(n_input=D + 2))
+    gp_t = port.GPGradDependentNonlinear(port.GradDependentNonlinear(n_input=D + 2), device="cpu")
     gp_t.state = state_from_numpy(
         {k: np.asarray(v) for k, v in gp_j.state._asdict().items()}, "cpu")
     return gp_j, gp_t, np.array(x_dom)
@@ -117,7 +117,7 @@ def test_predict_std_matches_jax(carried):
 
 def test_predict_std_factor_is_cached_per_state():
     eq = port.GradDependentNonlinear(n_input=D + 2)
-    gp = port.GPGradDependentNonlinear(eq, port.GPConfig(gn_steps=4))
+    gp = port.GPGradDependentNonlinear(eq, port.GPConfig(gn_steps=4), device="cpu")
     x_dom, x_bdy = eq.generate_data(60, 14, torch.Generator().manual_seed(0))
     gp.GPsolver(x_dom, x_bdy)
     x = eq.geometry().sample_domain(torch.Generator().manual_seed(5), 64)
