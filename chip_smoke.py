@@ -41,6 +41,22 @@ Phases, each printing its own lines:
               Allen-Cahn paths), rel-L2 of GP, MLP and SCaSML, the guard's
               lambda and ladder, and per-call times of the semigroup
               surrogates' feature blocks.
+  7. fit-ml:  the runner's --fit-ml path at d=20 (runner.fitted_config: the
+              4-candidate ridge grid, then the marginal-likelihood fit, 3
+              rounds of 6 restarts x 30 Adam steps, each candidate judged by
+              3 full-history ScaSML rollouts; then run() through
+              SimpleUniform, 1000 + 200 train and test points, seed 1234,
+              n = rho = 2, M = 3, into results/smoke_fitml/): grid, fit,
+              judge and round times, the NLML history, the candidate table,
+              the shipped config, kernel launches of grid, fit and run, and
+              rel-L2 of GP, MLP and SCaSML.
+  8. sweeps:  ConvergenceRate, InferenceScaling, SimpleScaling and
+              ComputingBudget through run() with phase 5's tuned config
+              (full history, M = 3, seed 1234, each harness's defaults,
+              into results/smoke_sweeps/): wall times, rows, the key trees
+              against the JAX package's committed metrics.json, the
+              evaluation counters, and the kernel against posterior_block
+              at the sweeps' new shapes (a 100 + 20 point GP; M = 15).
 Kernel times are CUDA-event times of calls back to back as a caller sees
 them (``ms`` and ``plain_ms``, the host's launch cost included, as in every
 earlier version of this script) and with the stream held until every call is
@@ -130,8 +146,11 @@ def key_tree(obj):
 
 
 def leaves(obj):
+    """Every value of a metrics dict, through nested dicts and lists."""
     if isinstance(obj, dict):
-        for v in obj.values():
+        obj = list(obj.values())
+    if isinstance(obj, list):
+        for v in obj:
             yield from leaves(v)
     else:
         yield obj
@@ -199,7 +218,7 @@ def describe(rec):
 
 def runner_phase(dev, smi):
     """Phase 5: the flagless full-history runner path; returns the kernel
-    records it adds to the JSON line."""
+    records it adds to the JSON line and the tuned config."""
     import torch
 
     import scasml_gp_torch as port
@@ -307,7 +326,7 @@ def runner_phase(dev, smi):
         rec["launches"] = {"tune": tune_launches.get(flags, 0),
                            "run": run_launches.get(flags, 0),
                            "u_solve": solve_launches.get(flags, 0)}
-    return records
+    return records, config
 
 
 EXTRA_D = 100
@@ -522,6 +541,300 @@ def extra_phase(dev, smi):
     return records
 
 
+FITML_DIR = "results/smoke_fitml"
+FIT_ROUNDS, FIT_RESTARTS, FIT_STEPS = 3, 6, 30  # fit_gp_marginal_likelihood's
+FIT_ROWS = 1 + 1 + FIT_RESTARTS                 # base, the grid seed, restarts
+GRID_CANDIDATES = 4
+# Posterior calls pinned on the CPU by tests/test_torch_marginal.py: the
+# judge scores each grid candidate and each row of the fit's table with
+# JUDGE_VAL_SETS rollouts; the fit's rounds make none.
+EXPECTED_GRID_LAUNCHES = {k: v * GRID_CANDIDATES * JUDGE_VAL_SETS
+                          for k, v in JUDGE_LAUNCHES.items()}
+EXPECTED_FIT_LAUNCHES = {k: v * FIT_ROWS * JUDGE_VAL_SETS
+                         for k, v in JUDGE_LAUNCHES.items()}
+
+
+def fit_ml_phase(dev, smi):
+    """Phase 7: --fit-ml (runner.fitted_config, then runner.run) at d=20;
+    returns the launches of its parts by specialisation."""
+    import numpy as np
+    import torch
+
+    import scasml_gp_torch as port
+    from scasml_gp_torch.gp import fused_posterior as fp
+    from scasml_gp_torch.gp import marginal
+    from scasml_gp_torch.harness import runner
+
+    config = port.RunConfig(
+        dim=D, num_domain=N_DOM, num_boundary=N_BDY, test_domain=N_TEST_DOM,
+        test_boundary=N_TEST_BDY, seed=1234, harness="SimpleUniform",
+        save_path=FITML_DIR,
+        picard=port.PicardConfig(variant="full_history", n=2, rho=2, M=3),
+    )
+    # The fit's parts, timed (host clock, synchronized) and their launches
+    # counted by wrapping the functions fitted_config reaches.
+    parts = {}
+
+    def timed(part, fn):
+        def wrapper(*a, **kw):
+            torch.cuda.synchronize()
+            before = dict(fp.launches_by_flags)
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            p = parts.setdefault(part, {"s": 0.0, "calls": 0, "launches": {}})
+            p["s"] += time.perf_counter() - t0
+            p["calls"] += 1
+            for k, v in fp.launches_by_flags.items():
+                p["launches"][k] = p["launches"].get(k, 0) + v - before.get(k, 0)
+            return out
+        return wrapper
+
+    def judge_timed(make):
+        return lambda *a, **kw: timed("judge", make(*a, **kw))
+
+    wrapped = [(runner, "tune_gp", timed, "grid"),
+               (runner, "fit_gp_marginal_likelihood", timed, "fit"),
+               (marginal, "_descend", timed, "adam"),
+               (marginal, "scasml_judge", None, None)]
+    originals = [getattr(owner, name) for owner, name, _, _ in wrapped]
+    for owner, name, wrap, part in wrapped:
+        fn = getattr(owner, name)
+        setattr(owner, name, wrap(part, fn) if wrap else judge_timed(fn))
+    torch.cuda.synchronize()
+    fp.reset_launches()
+    try:
+        config, fit = runner.fitted_config(config, dev)
+    finally:
+        for (owner, name, _, _), fn in zip(wrapped, originals):
+            setattr(owner, name, fn)
+    torch.cuda.synchronize()
+    path_launches = dict(fp.launches_by_flags)
+    grid_s, fit_s = parts["grid"]["s"], parts["fit"]["s"]
+    judge_s, adam_s = parts["judge"]["s"], parts["adam"]["s"]
+    rounds_s = fit_s - judge_s
+    print(f"[fit-ml] {smi}; grid ({GRID_CANDIDATES} candidates) {grid_s:.3f} s; "
+          f"fit {fit_s:.3f} s = judge of {parts['judge']['calls']} candidates "
+          f"{judge_s:.3f} s + {FIT_ROUNDS} outer rounds {rounds_s:.3f} s, one round "
+          f"{rounds_s / FIT_ROUNDS:.3f} s = Adam {adam_s / FIT_ROUNDS:.3f} s "
+          f"({FIT_RESTARTS} x {FIT_STEPS} steps) + Newton trains and final NLML "
+          f"{(rounds_s - adam_s) / FIT_ROUNDS:.3f} s (host clock, synchronized)",
+          flush=True)
+    for i, row in enumerate(fit.history):
+        print(f"[fit-ml] NLML after round {i + 1}: "
+              + ", ".join(f"{v:.6g}" for v in row), flush=True)
+    for cfg, nlml, score in fit.table:
+        print(f"[fit-ml] candidate ridge_scale={cfg.ridge_scale:.6g} "
+              f"gamma_scale={cfg.gamma_scale:.6g} time_scale={cfg.time_scale:.6g} "
+              f"nugget={cfg.nugget:g}: NLML {nlml:.6g}, score {score:.6g}", flush=True)
+    shipped = [score for cfg, _, score in fit.table if cfg == fit.config][0]
+    print(f"[fit-ml] shipped: {fit.config} (score {shipped:.6g}; grid seed "
+          f"{fit.table[1][2]:.6g})", flush=True)
+    check(np.isfinite(fit.history).all(), "the fit's NLML history is not finite")
+    check(fit.history.shape == (FIT_ROUNDS, FIT_RESTARTS),
+          f"history shape {fit.history.shape}")
+    check(len(fit.table) == FIT_ROWS, f"{len(fit.table)} table rows, expected {FIT_ROWS}")
+    check(all(math.isfinite(score) for _, _, score in fit.table), "a score is not finite")
+    check(shipped <= fit.table[1][2], "the shipped config scores worse than the grid seed")
+
+    fp.reset_launches()
+    runner.run(config, device=dev, make_plots=False)
+    torch.cuda.synchronize()
+    run_launches = dict(fp.launches_by_flags)
+    with open(os.path.join(runner.run_dir(config), "SimpleUniform", "metrics.json")) as fh:
+        written = json.load(fh)
+    check(key_tree(written) == METRICS_KEYS, "fit-ml metrics.json keys")
+    check(all(isinstance(v, (int, float)) and math.isfinite(v)
+              for v in leaves(written)), "fit-ml metrics.json holds a non-finite value")
+    rel = {k: written["metrics"][k]["rel_L2"] for k in SOLVERS}
+    print(f"[fit-ml] {smi}; rel-L2: GP {rel['GP']:.6f}, MLP {rel['MLP']:.6f}, "
+          f"SCaSML {rel['SCaSML']:.6f}", flush=True)
+    launches = {"grid": parts["grid"]["launches"], "fit": parts["fit"]["launches"],
+                "run": run_launches}
+    print("[fit-ml] kernel launches: " + ", ".join(
+        f"{k} {by_flags_str(v)}" for k, v in launches.items()), flush=True)
+    check(launches["grid"] == EXPECTED_GRID_LAUNCHES,
+          f"grid launches {launches['grid']} != {EXPECTED_GRID_LAUNCHES}")
+    check(launches["fit"] == EXPECTED_FIT_LAUNCHES,
+          f"fit launches {launches['fit']} != {EXPECTED_FIT_LAUNCHES}")
+    check(path_launches == {k: EXPECTED_GRID_LAUNCHES[k] + EXPECTED_FIT_LAUNCHES[k]
+                            for k in JUDGE_LAUNCHES},
+          f"fitted_config launches {path_launches}")
+    check(run_launches == EXPECTED_RUN_LAUNCHES,
+          f"run launches {run_launches} != {EXPECTED_RUN_LAUNCHES}")
+    check(rel["GP"] < 0.06, f"fitted GP rel-L2 {rel['GP']} not below 0.06")
+    check(rel["SCaSML"] < rel["GP"],
+          f"SCaSML rel-L2 {rel['SCaSML']} not below GP {rel['GP']}")
+    return {flags: {k: v.get(flags, 0) for k, v in launches.items()}
+            for flags in MAIN_SPECS}
+
+
+SWEEPS_DIR = "results/smoke_sweeps"
+SWEEPS = ("ConvergenceRate", "InferenceScaling", "SimpleScaling", "ComputingBudget")
+# The JAX package's committed metrics.json of each sweep at this width
+JAX_SWEEP = "reports/campaign/GradDependentNonlinear/20d/full_history/{}/metrics.json"
+CR_SMALLEST = (100, 20)  # ConvergenceRate's first training size
+
+
+def cumulative_counter(schedule):
+    """ScaSMLFullHistory's evaluation_counter after each (n, M) solve."""
+    from scasml_gp_torch.picard.schedule import count_evaluations_full_history
+
+    out, total = [], 0
+    for n, M in schedule:
+        total += count_evaluations_full_history(n, M, scasml_variant=True,
+                                                count_fg=True)
+        out.append(total)
+    return out
+
+
+def sweeps_phase(dev, smi, tuned):
+    """Phase 8: the four sweep harnesses through runner.run with the tuned
+    config of phase 5; returns their launches and the kernel records at
+    the new shapes."""
+    import dataclasses
+
+    import torch
+
+    from scasml_gp_torch.gp import fused_posterior as fp
+    from scasml_gp_torch.gp.posterior import posterior_block
+    from scasml_gp_torch.harness import runner
+
+    M = tuned.picard.M
+    # (flags, rows, training rows) of every kernel call, by harness
+    shapes = {h: {} for h in SWEEPS}
+    launch = fp.fused_posterior
+    current = [None]
+
+    def recording(x, fused, want_grad=False, want_ops=False):
+        key = ((bool(want_grad), bool(want_ops)), x.shape[0], fused.y.shape[0])
+        seen = shapes[current[0]]
+        seen[key] = seen.get(key, 0) + 1
+        return launch(x, fused, want_grad, want_ops)
+
+    results, launches = {}, {}
+    fp.fused_posterior = recording
+    try:
+        for h in SWEEPS:
+            config = dataclasses.replace(tuned, harness=h, save_path=SWEEPS_DIR)
+            current[0] = h
+            torch.cuda.synchronize()
+            fp.reset_launches()
+            t0 = time.perf_counter()
+            runner.run(config, device=dev, make_plots=False)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches[h] = dict(fp.launches_by_flags)
+            with open(os.path.join(runner.run_dir(config), h, "metrics.json")) as fh:
+                results[h] = json.load(fh)
+            print(f"[sweeps] {h}: {wall:.3f} s (host clock, synchronized; {smi}); "
+                  f"kernel launches {by_flags_str(launches[h])}", flush=True)
+    finally:
+        fp.fused_posterior = launch
+
+    for h in SWEEPS:
+        r = results[h]
+        with open(JAX_SWEEP.format(h)) as fh:
+            want = json.load(fh)
+        check(key_tree(r) == key_tree(want),
+              f"{h} metrics.json keys {key_tree(r)} != the JAX package's {key_tree(want)}")
+        check(all(isinstance(v, (int, float)) and math.isfinite(v) for v in leaves(r)),
+              f"{h} metrics.json holds a non-finite value")
+        check(sum(launches[h].values()) > 0, f"{h} launched no kernel")
+    for flags in MAIN_SPECS:
+        check(sum(launches[h].get(flags, 0) for h in SWEEPS) > 0,
+              f"the sweeps never launched the kernel {flags}")
+
+    cr = results["ConvergenceRate"]
+    for n, g, s in zip(cr["train_sizes"], cr["rel_L2"]["GP"], cr["rel_L2"]["SCaSML"]):
+        print(f"[sweeps] ConvergenceRate N={n}: GP {g:.6f}, SCaSML {s:.6f}", flush=True)
+    print(f"[sweeps] ConvergenceRate slopes: GP {cr['slopes']['GP']:.4f}, "
+          f"SCaSML {cr['slopes']['SCaSML']:.4f}", flush=True)
+    inf = results["InferenceScaling"]
+    for i, rho in enumerate(inf["rho"]):
+        print(f"[sweeps] InferenceScaling rho={rho}: evals "
+              f"{inf['evaluation_counter'][i]}, GP {inf['rel_L2']['GP'][i]:.6f}, "
+              f"MLP {inf['rel_L2']['MLP'][i]:.6f}, SCaSML "
+              f"{inf['rel_L2']['SCaSML'][i]:.6f}, improvement "
+              f"{inf['improvement_pct'][i]:.2f}%", flush=True)
+    ss = results["SimpleScaling"]
+    for i, base in enumerate(ss["sample_base"]):
+        print(f"[sweeps] SimpleScaling M={base}: evals {ss['evaluation_counter'][i]}, "
+              f"GP {ss['rel_L2']['GP'][i]:.6f}, MLP {ss['rel_L2']['MLP'][i]:.6f}, "
+              f"SCaSML {ss['rel_L2']['SCaSML'][i]:.6f}, improvement "
+              f"{ss['improvement_pct'][i]:.2f}%", flush=True)
+    cb = results["ComputingBudget"]
+    for i, level in enumerate(cb["budget_levels"]):
+        print(f"[sweeps] ComputingBudget level {level}: " + ", ".join(
+            f"{k} {cb['rel_L2'][k][i]:.6f} ({cb['times'][k][i]:.3f} s)"
+            for k in SOLVERS), flush=True)
+
+    want_inf = cumulative_counter([(rho, M) for rho in inf["rho"]])
+    want_ss = cumulative_counter([(1, base) for base in ss["sample_base"]])
+    check(inf["evaluation_counter"] == want_inf,
+          f"InferenceScaling counters {inf['evaluation_counter']} != {want_inf}")
+    check(ss["evaluation_counter"] == want_ss,
+          f"SimpleScaling counters {ss['evaluation_counter']} != {want_ss}")
+    for h in ("ConvergenceRate", "SimpleScaling"):
+        rows = results[h]["rel_L2"]
+        check(all(s < g for s, g in zip(rows["SCaSML"], rows["GP"])),
+              f"{h}: SCaSML not below GP at every row ({rows})")
+    check(all(v > 0 for v in inf["improvement_pct"]),
+          f"InferenceScaling improvement {inf['improvement_pct']} not above 0")
+    # ComputingBudget gives ScaSML's surrogate max(1, 5 b // 2) Newton steps
+    # against the GP's 5 b.  Whether SCaSML beats the GP at a level depends
+    # on whether that surrogate has converged, which varies with the draw in
+    # both packages (PERF.md, section 6): SCaSML is held below the GP at the
+    # largest budget and below MLP at every one, and the tuned kernel's
+    # Newton losses on this draw are printed below.
+    rows = cb["rel_L2"]
+    check(rows["SCaSML"][-1] < rows["GP"][-1],
+          f"ComputingBudget: SCaSML not below GP at the largest budget ({rows})")
+    check(all(s < m for s, m in zip(rows["SCaSML"], rows["MLP"])),
+          f"ComputingBudget: SCaSML not below MLP at every level ({rows})")
+
+    # The kernel against its plain version at the sweeps' new shapes: the
+    # smallest ConvergenceRate GP at the largest call of each specialisation,
+    # and SimpleScaling's M = 15 calls against the run's GP.
+    eq, gp_small, _, _ = runner.build_solvers(tuned, dev)
+    gen = torch.Generator(device=dev).manual_seed(tuned.seed + 100)
+    gp_small.GPsolver(*eq.generate_data(*CR_SMALLEST, gen, device=dev), GN_steps=20)
+    _, gp_full, _, _ = runner.build_solvers(tuned, dev)
+    gen = torch.Generator(device=dev).manual_seed(tuned.seed)
+    gp_full.GPsolver(*eq.generate_data(N_DOM, N_BDY, gen, device=dev))
+    loss = gp_full.loss_history.tolist()
+    print(f"[sweeps] tuned kernel's Newton loss by step on the harnesses' "
+          f"{N_DOM} + {N_BDY} points: " + " ".join(f"{v:.4g}" for v in loss)
+          + f" (within 1% of the last from step "
+          f"{min(i for i, v in enumerate(loss) if v <= 1.01 * loss[-1])})", flush=True)
+    cases = {
+        f"convergence_rate_{CR_SMALLEST[0]}+{CR_SMALLEST[1]}":
+            ("ConvergenceRate", gp_small, tuple(MAIN_SPECS)),
+        f"simple_scaling_M{ss['sample_base'][-1]}":
+            ("SimpleScaling", gp_full, ((False, False), (False, True))),
+    }
+    gen_x = torch.Generator(device=dev).manual_seed(9)
+    records = {flags: {} for flags in MAIN_SPECS}
+    for tag, (h, gp, specs) in cases.items():
+        st = gp.state
+        fused = st.fused_inputs()
+        m = fused.y.shape[0]
+        for flags in specs:
+            n = max(rows for (f, rows, mm) in shapes[h] if f == flags and mm == m)
+            x = eq.geometry().sample_domain(gen_x, n, device=dev)
+            err = compare_kernel(x, fused, st.x_dom, st.x_bdy, st.right_vector,
+                                 st.gamma, D, flags, f"{tag}, n={n}", repeat=True)
+            rec = kernel_record(x, fused, flags, lambda: posterior_block(
+                x, st.x_dom, st.x_bdy, st.right_vector, st.gamma, D, *flags), err)
+            rec["training_rows"] = m
+            records[flags][tag] = rec
+            print(f"[sweeps] kernel {MAIN_SPECS[flags][0]} (want_grad={flags[0]:d}, "
+                  f"want_ops={flags[1]:d}) {tag}: n={n} against {m} training rows: "
+                  f"{describe(rec)} ({smi})", flush=True)
+    return {flags: {"launches": {h: launches[h].get(flags, 0) for h in SWEEPS},
+                    **records[flags]} for flags in MAIN_SPECS}
+
+
 def main():
     import torch
 
@@ -663,10 +976,16 @@ def main():
           f"ScaSML rel-L2 {e_sca} not below GP {e_gp} and 0.10")
 
     # 5. the flagless full-history runner path
-    fh = runner_phase(dev, smi)
+    fh, tuned = runner_phase(dev, smi)
 
     # 6. the three other PDE families at d=100
     extra = extra_phase(dev, smi)
+
+    # 7. --fit-ml at d=20
+    fit_ml = fit_ml_phase(dev, smi)
+
+    # 8. the four sweep harnesses with the tuned config of phase 5
+    sweeps = sweeps_phase(dev, smi, tuned)
 
     kernels = []
     for f, (caller, _) in MAIN_SPECS.items():
@@ -681,6 +1000,8 @@ def main():
                                         "library_ms", "device_ms", "rows", "splits")},
             "full_history": fh[f],
             "sine_d100": extra[f],
+            "fit_ml": fit_ml[f],
+            "sweeps": sweeps[f],
         }
         if f == (True, False):  # the gradient kernel with the operators on too
             rec["sine_d100_with_ops"] = extra[(True, True)]

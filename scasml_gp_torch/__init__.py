@@ -15,8 +15,9 @@ checked against; the port never imports it.
 - ``picard``     static schedules, the quadrature and full-history
                  multilevel Picard recursions, MLP and ScaSML in both variants,
                  with ScaSML's variance guard.
-- ``harness``    the runner CLI and the SimpleUniform / RepeatedExperiment
-                 harnesses; ``gp.tuning`` is the ScaSML-judged kernel tuner.
+- ``harness``    the runner CLI and the six experiment harnesses;
+                 ``gp.tuning`` is the ScaSML-judged kernel tuner and
+                 ``gp.marginal`` the marginal-likelihood fit (--fit-ml).
 - ``utils``      the nvcc build of ``csrc/*.cu``, logging and profiling.
 """
 

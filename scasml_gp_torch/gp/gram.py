@@ -2,8 +2,10 @@
 
 Port of ``scasml_gp_tpu/gp/gram.py``: the (4N + Nb)^2 Gram over
 phi = [ID@dom, ID@bdy, LAP@dom, DT@dom, DIV@dom] from the closed-form blocks
-of :mod:`scasml_gp_torch.gp.kernels`, and the Jacobi-equilibrated float32
-Cholesky with a jitter ladder and an explicit potri-style inverse.
+of :mod:`scasml_gp_torch.gp.kernels`, the Jacobi-equilibrated float32
+Cholesky with a jitter ladder and an explicit inverse, and the
+differentiable log-determinant and quadratic form of the marginal-likelihood
+fit.
 """
 
 from __future__ import annotations
@@ -60,6 +62,35 @@ def regularized_factorization(K: torch.Tensor, nugget: float
     Minv = torch.cholesky_inverse(L)
     C = scale[:, None] * Minv * scale[None, :]
     return K_pert, C
+
+
+def logdet_quad(K: torch.Tensor, nugget, b: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(log det(K + nugget I), b^T (K + nugget I)^{-1} b) in float32,
+    differentiable in K, ``nugget`` and b (the marginal-likelihood fit,
+    gp/marginal.py).
+
+    The same Jacobi equilibration as :func:`regularized_factorization`: with
+    M = D^{-1/2} (K + nugget I) D^{-1/2},
+        logdet = sum log d_i + 2 sum log diag chol(M),
+        quad   = || chol(M)^{-1} D^{-1/2} b ||^2.
+    A probe factorization of M without gradients decides whether a jitter of
+    1e-3 is added, so the Cholesky that is differentiated only ever sees a
+    finite operand.  No host sync: the decision stays on the device."""
+    K = 0.5 * (K + K.T)
+    eye = torch.eye(K.shape[0], dtype=K.dtype, device=K.device)
+    diag = torch.clamp_min(torch.diagonal(K), 1e-12) + nugget
+    scale = torch.rsqrt(diag)
+    M = scale[:, None] * (K + nugget * eye) * scale[None, :]
+    probe, info = torch.linalg.cholesky_ex(M.detach())
+    ok = (info == 0) & torch.isfinite(probe).all()
+    L, info = torch.linalg.cholesky_ex(M + torch.where(ok, 0.0, 1e-3) * eye)
+    # a factorization that fails even so is NaN, as the JAX package's is
+    L = torch.where(info == 0, L, torch.full_like(L, float("nan")))
+    logdet = torch.sum(torch.log(diag)) + 2.0 * torch.sum(
+        torch.log(torch.clamp_min(torch.diagonal(L), 1e-30)))
+    w = torch.linalg.solve_triangular(L, (scale * b)[:, None], upper=False)
+    return logdet, torch.sum(w * w)
 
 
 def _cholesky_with_retry(M: torch.Tensor, eye: torch.Tensor) -> torch.Tensor:

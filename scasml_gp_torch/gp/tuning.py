@@ -10,7 +10,9 @@ where ``u_breve`` is the candidate's full-history ScaSML correction: a
 Monte-Carlo estimate of the candidate's own error field u - u_hat, which
 needs no held-out data.  The judge's generator is reseeded before each
 validation set with the same seed for every candidate (common random
-numbers), so most of the Monte-Carlo noise cancels from the ranking.
+numbers), so most of the Monte-Carlo noise cancels from the ranking.  The
+marginal-likelihood fit (gp/marginal.py) selects with the same judge,
+:func:`scasml_judge`.
 """
 
 from __future__ import annotations
@@ -45,53 +47,29 @@ def validation_score(gp, x_val_dom, x_val_bdy, boundary_weight: float = 1.0):
     return float(np.mean(eps**2) + boundary_weight * np.mean((u_b - g_b) ** 2))
 
 
-def tune_gp(
-    gp_cls,
-    equation,
-    x_dom,
-    x_bdy,
-    base: Optional[GPConfig] = None,
-    time_scales: Sequence[float] = (1.0,),
-    ridge_scales: Sequence[float] = (0.0, 3.0, 10.0, 30.0),
-    gamma_scales: Sequence[float] = (1.0,),
-    nuggets: Optional[Sequence[float]] = None,
-    val_fraction: float = 0.4,
-    gn_steps: Optional[int] = None,
-    seed: int = 0,
-    train_backend: str = "auto",
-    judge_n: Optional[int] = None,
-    judge_M: int = 8,
-    judge_score: str = "energy",
-    judge_val_sets: int = 3,
-) -> TuneResult:
-    """Grid-search the GP kernel on the device of ``x_dom``; candidates train
-    at full size and are judged by their own ScaSML correction energy on
-    fresh interior points.  Any ``judge_score`` other than 'cross' means
-    'energy'.  Returns the winning GPConfig and the score table."""
+def scasml_judge(gp_cls, equation, base: GPConfig, x_dom, x_bdy, steps: int,
+                 seed: int = 0, val_fraction: float = 0.4,
+                 judge_n: Optional[int] = None, judge_M: int = 8,
+                 judge_score: str = "energy", judge_val_sets: int = 3):
+    """The ScaSML judge of ``tune_gp`` and of the marginal-likelihood fit
+    (gp/marginal.py): returns ``score(gamma, nugget) -> float``, which trains
+    a candidate kernel at full size on (x_dom, x_bdy) through ``GP._train``
+    and scores the energy of its full-history ScaSML correction, averaged
+    over ``judge_val_sets`` sets of max(64, val_fraction N) fresh interior
+    points.  The judge's generator is reseeded before each set with the same
+    seed for every candidate (common random numbers).  ``judge_n`` None
+    means depth 3 at d >= 100 and 2 below; any ``judge_score`` other than
+    'cross' means 'energy'."""
     from scasml_gp_torch.picard.scasml import ScaSMLFullHistory
 
-    base = base or GPConfig()
-    nuggets = nuggets or (base.nugget,)
     if judge_n is None:
         # the n=2 judge mis-ranks at d >= 100; n=3 picks the test optimum
         judge_n = 3 if equation.dim >= 100 else 2
-    x_dom = torch.as_tensor(x_dom, dtype=torch.float32)
     dev = x_dom.device
-    x_bdy = torch.as_tensor(x_bdy, dtype=torch.float32, device=dev)
     n_dom = x_dom.shape[0]
-
     gp = gp_cls(equation, base, device=dev)
-    if train_backend == "auto":
-        gp._check_train_backend(x_dom, x_bdy)
-    elif train_backend == "distributed":
-        raise NotImplementedError(
-            "the distributed (dual-CG) trainer is not ported (ROADMAP Queue 1 F)")
-    elif train_backend != "dense":
-        raise ValueError(f"unknown train_backend {train_backend!r}")
-    steps = base.gn_steps if gn_steps is None else int(gn_steps)
     bg = equation.g(x_bdy)[:, 0].to(torch.float32)
     rhs = gp.form.rhs_f(x_dom).to(torch.float32)
-
     judge_gp = gp_cls(equation, base, device=dev)
     judge = ScaSMLFullHistory(equation, judge_gp, variance_guard=False)
     geom = equation.geometry()
@@ -102,7 +80,7 @@ def tune_gp(
         for i in range(judge_val_sets)
     ]
 
-    def score_one(gamma, nugget):
+    def score(gamma, nugget) -> float:
         rv = gp._train(x_dom, x_bdy, bg, rhs, gamma, nugget, steps,
                        base.damping, base.grad_tol).right_vector
         # A new state per candidate: a state caches the kernel's stacked
@@ -127,6 +105,51 @@ def tune_gp(
             else:
                 total += float(torch.mean(ub * ub))
         return total / len(val_sets)
+
+    return score
+
+
+def tune_gp(
+    gp_cls,
+    equation,
+    x_dom,
+    x_bdy,
+    base: Optional[GPConfig] = None,
+    time_scales: Sequence[float] = (1.0,),
+    ridge_scales: Sequence[float] = (0.0, 3.0, 10.0, 30.0),
+    gamma_scales: Sequence[float] = (1.0,),
+    nuggets: Optional[Sequence[float]] = None,
+    val_fraction: float = 0.4,
+    gn_steps: Optional[int] = None,
+    seed: int = 0,
+    train_backend: str = "auto",
+    judge_n: Optional[int] = None,
+    judge_M: int = 8,
+    judge_score: str = "energy",
+    judge_val_sets: int = 3,
+) -> TuneResult:
+    """Grid-search the GP kernel on the device of ``x_dom``; candidates train
+    at full size and are judged by their own ScaSML correction energy on
+    fresh interior points (:func:`scasml_judge`).  Returns the winning
+    GPConfig and the score table."""
+    base = base or GPConfig()
+    nuggets = nuggets or (base.nugget,)
+    x_dom = torch.as_tensor(x_dom, dtype=torch.float32)
+    dev = x_dom.device
+    x_bdy = torch.as_tensor(x_bdy, dtype=torch.float32, device=dev)
+
+    if train_backend == "auto":
+        gp_cls(equation, base, device=dev)._check_train_backend(x_dom, x_bdy)
+    elif train_backend == "distributed":
+        raise NotImplementedError(
+            "the distributed (dual-CG) trainer is not ported (ROADMAP Queue 1 F)")
+    elif train_backend != "dense":
+        raise ValueError(f"unknown train_backend {train_backend!r}")
+    steps = base.gn_steps if gn_steps is None else int(gn_steps)
+    score_one = scasml_judge(
+        gp_cls, equation, base, x_dom, x_bdy, steps, seed=seed,
+        val_fraction=val_fraction, judge_n=judge_n, judge_M=judge_M,
+        judge_score=judge_score, judge_val_sets=judge_val_sets)
 
     table = []
     best = None

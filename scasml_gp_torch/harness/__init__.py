@@ -7,9 +7,14 @@ from scasml_gp_torch.harness.metrics import (
 )
 from scasml_gp_torch.harness.simple_uniform import SimpleUniform
 from scasml_gp_torch.harness.repeated import RepeatedExperiment
+from scasml_gp_torch.harness.convergence_rate import ConvergenceRate
+from scasml_gp_torch.harness.inference_scaling import InferenceScaling
+from scasml_gp_torch.harness.simple_scaling import SimpleScaling
+from scasml_gp_torch.harness.computing_budget import ComputingBudget
 from scasml_gp_torch.harness.runner import (
     HARNESSES,
     build_solvers,
+    fitted_config,
     run,
     tuned_config,
 )
@@ -22,8 +27,13 @@ __all__ = [
     "valid_mask",
     "SimpleUniform",
     "RepeatedExperiment",
+    "ConvergenceRate",
+    "InferenceScaling",
+    "SimpleScaling",
+    "ComputingBudget",
     "HARNESSES",
     "build_solvers",
+    "fitted_config",
     "run",
     "tuned_config",
 ]

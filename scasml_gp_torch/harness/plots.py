@@ -1,17 +1,17 @@
 """Publication figures shared by the harnesses (a copy of
 ``scasml_gp_tpu/harness/plots.py``).
 
-The figures of SimpleUniform and RepeatedExperiment, palette GP black
-#000000, MLP gray #A6A3A4, SCaSML teal #2C939A, rendered with matplotlib's
-Agg backend so harnesses run headless.  matplotlib is imported by the
-plotting functions only, so a host without it imports this module and runs
-``hexbin_stats``; a plotting call there raises ImportError.
+The figures of the six harnesses, palette GP black #000000, MLP gray
+#A6A3A4, SCaSML teal #2C939A, rendered with matplotlib's Agg backend so
+harnesses run headless.  matplotlib is imported by the plotting functions
+only, so a host without it imports this module and runs ``hexbin_stats`` and
+``regression_ci``; a plotting call there raises ImportError.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict
+from typing import Dict, Sequence
 
 import numpy as np
 
@@ -195,6 +195,120 @@ def improvement_bars(
                     ha="center", va="bottom", fontsize=7)
         ax.set_ylabel("Relative L2 Error")
         ax.grid(axis="y", linestyle="--", alpha=0.4)
+        ax.spines[["top", "right"]].set_visible(False)
+        _save(fig, path)
+
+
+def regression_ci(
+    log_x: np.ndarray, log_y: np.ndarray, slope: float, intercept: float,
+    alpha: float = 0.95,
+):
+    """95% confidence band of a log-log regression line (reference
+    tests/ConvergenceRate.py:192-214): pointwise CI of the fitted mean,
+    se = sqrt(MSE (1/n + (x - x_mean)^2 / Sxx))."""
+    from scipy.stats import t as t_dist
+
+    log_y_pred = slope * log_x + intercept
+    residuals = log_y - log_y_pred
+    n = len(log_x)
+    df = max(n - 2, 1)
+    mse = np.sum(residuals ** 2) / df
+    x_mean = np.mean(log_x)
+    sxx = np.sum((log_x - x_mean) ** 2)
+    t_crit = t_dist.ppf((1 + alpha) / 2, df)
+    se = np.sqrt(mse * (1.0 / n + (log_x - x_mean) ** 2 / sxx))
+    return 10 ** (log_y_pred + t_crit * se), 10 ** (log_y_pred - t_crit * se)
+
+
+def loglog_convergence(
+    sizes: np.ndarray,
+    series: Dict[str, np.ndarray],
+    slopes: Dict[str, float],
+    path: str,
+):
+    """log-log error vs training size with fitted slopes and 95% CI bands
+    (ConvergenceRate)."""
+    eps = 1e-10
+    log_x = np.log10(np.asarray(sizes, np.float64) + eps)
+    plt = _pyplot()
+    with plt.rc_context(_RC):
+        fig, ax = plt.subplots(figsize=(3.5, 3))
+        for name, err in series.items():
+            color = COLOR_SCHEME.get(name, "#888888")
+            log_y = np.log10(np.asarray(err, np.float64) + eps)
+            slope, intercept = np.polyfit(log_x, log_y, 1)
+            upper, lower = regression_ci(log_x, log_y, slope, intercept)
+            ax.fill_between(sizes, lower, upper, color=color, alpha=0.15,
+                            linewidth=0, zorder=1)
+            ax.loglog(sizes, 10 ** (slope * log_x + intercept), linestyle="--",
+                      color=color, linewidth=0.8, zorder=2)
+            ax.loglog(sizes, err, marker="x", linestyle="none", color=color,
+                      label=f"{name} (slope {slopes[name]:.2f})", zorder=3)
+        ax.set_xlabel("Training size")
+        ax.set_ylabel("Relative $L^2$ error")
+        ax.legend(frameon=False)
+        ax.spines[["top", "right"]].set_visible(False)
+        _save(fig, path)
+
+
+def improvement_curve(x: np.ndarray, improvement: np.ndarray, xlabel: str, path: str):
+    """Improvement-vs-cost scaling-law plot (InferenceScaling/SimpleScaling)."""
+    plt = _pyplot()
+    with plt.rc_context(_RC):
+        fig, ax = plt.subplots(figsize=(3.5, 3))
+        ax.plot(x, improvement, color=COLOR_SCHEME["SCaSML"], linestyle="-",
+                marker="o", linewidth=1.5, markersize=4, label="Improvement (%)")
+        ax.set_xscale("log")
+        ax.set_xlabel(xlabel, labelpad=3)
+        ax.set_ylabel("Improvement (%)", labelpad=3)
+        ax.legend(frameon=False, loc="best")
+        ax.spines[["top", "right"]].set_visible(False)
+        _save(fig, path)
+
+
+def budget_curves(
+    budgets: Sequence[float], errors: Dict[str, Sequence[float]], path: str
+):
+    """Error vs computing budget (ComputingBudget)."""
+    plt = _pyplot()
+    with plt.rc_context(_RC):
+        fig, ax = plt.subplots(figsize=(3.5, 3))
+        for name, err in errors.items():
+            ax.plot(budgets, err, marker="o", linestyle="-",
+                    color=COLOR_SCHEME.get(name, "#888888"), label=name)
+        ax.set_xlabel("Budget level")
+        ax.set_ylabel("Relative $L^2$ error")
+        ax.legend(frameon=False)
+        ax.spines[["top", "right"]].set_visible(False)
+        _save(fig, path)
+
+
+def budget_improvement_bars(
+    levels: Sequence[int], errors: Dict[str, Sequence[float]], path: str
+):
+    """Grouped SCaSML-vs-GP / SCaSML-vs-MLP improvement% bars per budget
+    level (reference tests/ComputingBudget.py:352-387)."""
+    plt = _pyplot()
+    with plt.rc_context(_RC):
+        fig, ax = plt.subplots(figsize=(3.5, 3))
+        gp = np.asarray(errors["GP"], float)
+        mlp = np.asarray(errors["MLP"], float)
+        sca = np.asarray(errors["SCaSML"], float)
+        x = np.arange(len(levels))
+        width = 0.35
+        ax.bar(x - width / 2, (gp - sca) / gp * 100, width,
+               label="SCaSML vs GP", color=COLOR_SCHEME["GP"],
+               edgecolor="black", linewidth=0.5)
+        ax.bar(x + width / 2, (mlp - sca) / mlp * 100, width,
+               label="SCaSML vs MLP", color=COLOR_SCHEME["MLP"],
+               edgecolor="black", linewidth=0.5)
+        ax.set_xlabel("Computing Budget (×baseline)", labelpad=3)
+        ax.set_ylabel("Improvement (%)", labelpad=3)
+        ax.set_xticks(x)
+        ax.set_xticklabels([f"{b}×" for b in levels], rotation=45, ha="right")
+        ax.axhline(y=0, color="black", linewidth=0.8)
+        ax.legend(frameon=False, loc="upper left")
+        ax.grid(True, axis="y", linestyle="--", linewidth=0.5, alpha=0.4)
         ax.spines[["top", "right"]].set_visible(False)
         _save(fig, path)
 

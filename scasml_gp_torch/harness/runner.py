@@ -6,7 +6,8 @@ Port of ``scasml_gp_tpu/harness/runner.py``, with the same flags:
         --harness SimpleUniform --device cuda --no-plots
 
 or programmatically via :func:`run(config, device=...)`.  A flagless run
-tunes the GP kernel first (:func:`tuned_config`).  ``--device`` defaults to
+tunes the GP kernel first (:func:`tuned_config`); ``--fit-ml`` fits it by
+marginal likelihood instead (:func:`fitted_config`).  ``--device`` defaults to
 cuda and a missing CUDA device is an error: the runner never moves to the CPU
 by itself.  Figures need matplotlib; ``--no-plots`` skips them.
 """
@@ -24,8 +25,13 @@ from scasml_gp_torch.equations import EQUATIONS
 from scasml_gp_torch.gp.cole_hopf import GPHJBColeHopf
 from scasml_gp_torch.gp.semigroup import GPAllenCahnSemigroup
 from scasml_gp_torch.gp.solver import GPGradDependentNonlinear, GPSineNonlinear
+from scasml_gp_torch.gp.marginal import MarginalFitResult, fit_gp_marginal_likelihood
 from scasml_gp_torch.gp.tuning import TuneResult, tune_gp
+from scasml_gp_torch.harness.computing_budget import ComputingBudget
+from scasml_gp_torch.harness.convergence_rate import ConvergenceRate
+from scasml_gp_torch.harness.inference_scaling import InferenceScaling
 from scasml_gp_torch.harness.repeated import RepeatedExperiment
+from scasml_gp_torch.harness.simple_scaling import SimpleScaling
 from scasml_gp_torch.harness.simple_uniform import SimpleUniform
 from scasml_gp_torch.picard.mlp import MLP, MLPFullHistory
 from scasml_gp_torch.picard.scasml import ScaSML, ScaSMLFullHistory
@@ -34,11 +40,11 @@ from scasml_gp_torch.utils.device import resolve_device
 HARNESSES = {
     "SimpleUniform": SimpleUniform,
     "RepeatedExperiment": RepeatedExperiment,
+    "ConvergenceRate": ConvergenceRate,
+    "InferenceScaling": InferenceScaling,
+    "SimpleScaling": SimpleScaling,
+    "ComputingBudget": ComputingBudget,
 }
-# The JAX package's other harnesses; the CLI accepts their names and raises
-# NotImplementedError for them.
-UNPORTED_HARNESSES = ("ConvergenceRate", "InferenceScaling", "SimpleScaling",
-                      "ComputingBudget")
 
 GP_CLASSES = {
     "GradDependentNonlinear": GPGradDependentNonlinear,
@@ -53,13 +59,12 @@ GP_CLASSES = {
 # gamma_scale is the big lever at low d; 5 x 4 = 20 candidates.
 TUNE_RIDGE_SCALES = (0.0, 10.0, 30.0, 100.0, 300.0)
 TUNE_GAMMA_SCALES = (1.0, 0.3, 0.1, 0.05)
+# --fit-ml seeds its restarts from this smaller grid's winner.
+FIT_ML_RIDGE_SCALES = (0.0, 10.0, 30.0, 100.0)
 
 
 def check_ported(config: RunConfig) -> None:
     """Raise NotImplementedError for what the port does not run yet."""
-    if config.harness in UNPORTED_HARNESSES:
-        raise NotImplementedError(
-            f"the {config.harness} harness is not ported (ROADMAP Queue 1 G)")
     if config.harness not in HARNESSES:
         raise ValueError(f"unknown harness {config.harness!r}")
     if config.equation not in EQUATIONS:
@@ -108,16 +113,21 @@ def run_dir(config: RunConfig) -> str:
 
 
 def harness_kwargs(config: RunConfig, **test_kwargs) -> dict:
-    """The keyword arguments ``run`` passes to the harness's ``test``."""
-    kwargs = dict(
-        seed=config.seed,
-        rhomax=config.picard.rho,
-        num_domain=config.test_domain,
-        num_boundary=config.test_boundary,
-        train_domain=config.num_domain,
-        train_boundary=config.num_boundary,
-    )
-    if config.picard.variant == "full_history":
+    """The keyword arguments ``run`` passes to the harness's ``test``, as
+    the JAX runner selects them: the sizes and the depth go to SimpleUniform
+    and RepeatedExperiment only, and M to every full-history harness but
+    SimpleScaling (the sweeps forward unknown keywords into ``u_solve``).
+    The sweeps otherwise run at their own defaults."""
+    kwargs = dict(seed=config.seed)
+    if config.harness in ("SimpleUniform", "RepeatedExperiment"):
+        kwargs.update(
+            rhomax=config.picard.rho,
+            num_domain=config.test_domain,
+            num_boundary=config.test_boundary,
+            train_domain=config.num_domain,
+            train_boundary=config.num_boundary,
+        )
+    if config.picard.variant == "full_history" and config.harness != "SimpleScaling":
         kwargs["M"] = config.picard.M
     kwargs.update(test_kwargs)
     return kwargs
@@ -137,10 +147,9 @@ def resolve_tune(tune_flag, ridge_scale, time_scale, fit_ml, equation):
     )
 
 
-def tuned_config(config: RunConfig, device) -> "tuple[RunConfig, TuneResult]":
-    """The config with the tuner's winning GP kernel, and the tuner's result.
-    The tuner trains on the points the harness trains on: the same sizes,
-    seed and device."""
+def _harness_train_points(config: RunConfig, device):
+    """(equation, x_dom, x_bdy): the points the harness trains on, with the
+    same sizes, seed and device."""
     dev = resolve_device(device)
     check_ported(config)
     eq = EQUATIONS[config.equation](n_input=config.n_input)
@@ -148,10 +157,39 @@ def tuned_config(config: RunConfig, device) -> "tuple[RunConfig, TuneResult]":
         config.num_domain, config.num_boundary,
         torch.Generator(device=dev).manual_seed(int(config.seed)), device=dev,
     )
+    return eq, x_dom, x_bdy
+
+
+def tuned_config(config: RunConfig, device) -> "tuple[RunConfig, TuneResult]":
+    """The config with the tuner's winning GP kernel, and the tuner's result.
+    The tuner trains on the points the harness trains on."""
+    eq, x_dom, x_bdy = _harness_train_points(config, device)
     result = tune_gp(
         GP_CLASSES[config.equation], eq, x_dom, x_bdy, base=config.gp,
         ridge_scales=TUNE_RIDGE_SCALES, gamma_scales=TUNE_GAMMA_SCALES,
     )
+    return dataclasses.replace(config, gp=result.config), result
+
+
+def fitted_config(config: RunConfig, device
+                  ) -> "tuple[RunConfig, MarginalFitResult]":
+    """--fit-ml: the config with the marginal-likelihood fit's GP kernel, and
+    the fit's result.  A 4-candidate ridge grid runs first and its winner
+    seeds the fit and competes in its candidate table, so the shipped kernel
+    never scores worse than the grid's.  Both train on the points the
+    harness trains on."""
+    eq, x_dom, x_bdy = _harness_train_points(config, device)
+    if config.dim > 20:
+        print("warning: --fit-ml at d > 20 is a grid-seeded REFINER, not a "
+              "standalone fitter — the profile-MAP NLML descent converges to "
+              "over-smooth kernels at high d and the validation guard falls "
+              "back to the grid winner (measured attribution: "
+              "reports/ml_tuner_diagnosis.md)", file=sys.stderr)
+    gp_cls = GP_CLASSES[config.equation]
+    grid = tune_gp(gp_cls, eq, x_dom, x_bdy, base=config.gp,
+                   ridge_scales=FIT_ML_RIDGE_SCALES)
+    result = fit_gp_marginal_likelihood(gp_cls, eq, x_dom, x_bdy, base=config.gp,
+                                        seed_configs=(grid.config,))
     return dataclasses.replace(config, gp=result.config), result
 
 
@@ -163,7 +201,7 @@ def main(argv=None):
     parser.add_argument("--variant", default="quadrature",
                         choices=["quadrature", "full_history"])
     parser.add_argument("--harness", default="SimpleUniform",
-                        choices=sorted(list(HARNESSES) + list(UNPORTED_HARNESSES)))
+                        choices=sorted(HARNESSES))
     parser.add_argument("--save-path", default="results")
     parser.add_argument("--seed", type=int, default=1234)
     parser.add_argument("--num-domain", type=int, default=1000,
@@ -205,7 +243,9 @@ def main(argv=None):
     parser.add_argument("--no-tune", dest="tune", action="store_false",
                         help="disable the default hyperparameter tuning")
     parser.add_argument("--fit-ml", action="store_true",
-                        help="marginal-likelihood fit (not ported)")
+                        help="fit (gamma_scale, time_scale, ridge_scale) by "
+                             "marginal-likelihood descent, seeded from a "
+                             "ridge grid, before the run (gp/marginal.py)")
     parser.add_argument("--device", default="cuda",
                         help="torch device to run on (default cuda; a missing "
                              "CUDA device is an error)")
@@ -220,9 +260,6 @@ def main(argv=None):
         with open(args.config) as fh:
             config = RunConfig.from_json(fh.read())
     else:
-        if args.fit_ml:
-            raise NotImplementedError(
-                "--fit-ml (gp/marginal.py) is not ported (ROADMAP Queue 1 D)")
         config = RunConfig(
             equation=args.equation,
             dim=args.dim,
@@ -254,8 +291,12 @@ def main(argv=None):
             ),
         )
         check_ported(config)
-        if resolve_tune(args.tune, args.ridge_scale, args.time_scale,
-                        args.fit_ml, config.equation):
+        if args.fit_ml:
+            config, fit = fitted_config(config, args.device)
+            print(f"ML-fitted GP config: {config.gp} (NLML {fit.nlml:.1f}; grid "
+                  f"seed {fit.table[1][0].ridge_scale})", file=sys.stderr)
+        elif resolve_tune(args.tune, args.ridge_scale, args.time_scale,
+                          args.fit_ml, config.equation):
             config, _ = tuned_config(config, args.device)
             print(f"tuned GP config: {config.gp}", file=sys.stderr)
     extra = {"profile_dir": args.profile_dir} if args.profile_dir else {}

@@ -1,8 +1,9 @@
 """Port's harnesses and runner (scasml_gp_torch.harness) against the JAX
 package, at D=3 on the CPU: the artifacts, metrics.json keys and log lines
 of SimpleUniform and RepeatedExperiment, RunConfig's JSON, the auto-tune
-policy, the posterior calls of a full-history run, and the options that
-are not ported yet.
+policy, the posterior calls of a full-history run, the runner CLI on the
+sweep harnesses and --fit-ml, and the options that are not ported yet.
+(The sweeps against the JAX package: tests/test_torch_sweeps.py.)
 """
 
 import dataclasses
@@ -150,20 +151,55 @@ def _small_argv(tmp_path, *extra, device="cpu"):
             "--save-path", str(tmp_path), *extra]
 
 
+# ids kept from when the first four cases (now in
+# test_sweeps_and_fit_ml_run_through_main) raised too
 @pytest.mark.parametrize("extra", [
-    ["--harness", "ConvergenceRate"],
-    ["--harness", "ComputingBudget"],
-    ["--harness", "InferenceScaling"],
-    ["--fit-ml"],
-    ["--mesh-data", "2"],
-    ["--mesh-model", "4"],
-    ["--debug-checks", "--no-tune"],
-    ["--train-backend", "distributed"],
-    ["--bf16"],
+    pytest.param(["--mesh-data", "2"], id="extra4"),
+    pytest.param(["--mesh-model", "4"], id="extra5"),
+    pytest.param(["--debug-checks", "--no-tune"], id="extra6"),
+    pytest.param(["--train-backend", "distributed"], id="extra7"),
+    pytest.param(["--bf16"], id="extra8"),
 ])
 def test_unported_flags_raise(tmp_path, extra):
     with pytest.raises(NotImplementedError):
         runner.main(_small_argv(tmp_path, *extra))
+
+
+# Tiny sizes for the sweeps, which the runner otherwise runs at their own
+# defaults (1000 + 200 test points, ten training sizes, ...).
+TINY_SWEEPS = {
+    "ConvergenceRate": dict(n_samples=40, gn_steps=4, sizes_domain=[30, 60],
+                            sizes_boundary=[8, 16]),
+    "ComputingBudget": dict(budget_levels=(1,), num_domain=40, num_boundary=8,
+                            train_domain=40, train_boundary=10),
+    "InferenceScaling": dict(rhomax=2, n_samples=40, train_domain=40,
+                             train_boundary=10, gn_steps=4),
+}
+
+
+@pytest.mark.parametrize("extra", [
+    ["--harness", "ConvergenceRate", "--no-tune"],
+    ["--harness", "ComputingBudget", "--no-tune"],
+    ["--harness", "InferenceScaling", "--no-tune"],
+    ["--fit-ml"],
+])
+def test_sweeps_and_fit_ml_run_through_main(tmp_path, monkeypatch, extra):
+    """The CLI paths that once raised NotImplementedError run on the CPU and
+    write their harness's metrics.json."""
+    orig = runner.harness_kwargs
+    monkeypatch.setattr(runner, "harness_kwargs", lambda config, **kw: dict(
+        orig(config, **kw), **TINY_SWEEPS.get(config.harness, {})))
+    out = runner.main(_small_argv(tmp_path, "--variant", "full_history", "--M", "2",
+                                  "--no-plots", *extra))
+    harness = extra[1] if extra[0] == "--harness" else "SimpleUniform"
+    path = tmp_path / "GradDependentNonlinear" / f"{D}d" / "full_history" / harness
+    with open(path / "metrics.json") as fh:
+        m = json.load(fh)
+    assert _key_tree(m) == _key_tree(out)
+    rows = m["rel_L2"] if "rel_L2" in m else {k: [v["rel_L2"]] for k, v in m["metrics"].items()}
+    assert {"GP", "SCaSML"} <= set(rows)
+    assert all(np.isfinite(rows[k]).all() for k in rows)
+    assert os.path.exists(path / f"{harness}.log")
 
 
 def test_cuda_is_never_replaced_by_the_cpu(tmp_path):

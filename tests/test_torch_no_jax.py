@@ -1,6 +1,7 @@
 """The port imports neither JAX nor the JAX package: the GPU host has no JAX,
 so one stray import would break the port there.  Checked in a fresh
-interpreter, since this test process has JAX loaded already."""
+interpreter, since this test process has JAX loaded already.  "*" imports
+every module of the package, found by walking it, and chip_smoke.py."""
 
 import os
 import subprocess
@@ -9,17 +10,28 @@ import sys
 import pytest
 
 MODULES = ("scasml_gp_torch", "scasml_gp_torch.harness.runner",
-           "scasml_gp_torch.gp.tuning")
+           "scasml_gp_torch.gp.tuning", "scasml_gp_torch.gp.marginal", "*")
 
 
 @pytest.mark.parametrize("module", MODULES)
 def test_port_imports_no_jax(module):
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if module == "*":
+        load = (
+            "import pkgutil, scasml_gp_torch, chip_smoke\n"
+            "names = [m.name for m in pkgutil.walk_packages(\n"
+            "    scasml_gp_torch.__path__, 'scasml_gp_torch.')]\n"
+            "assert 'scasml_gp_torch.harness.computing_budget' in names, names\n"
+            "for name in names:\n"
+            "    importlib.import_module(name)\n"
+        )
+    else:
+        load = f"importlib.import_module({module!r})\n"
     code = (
         "import importlib, sys\n"
-        f"importlib.import_module({module!r})\n"
-        "bad = sorted(m for m in sys.modules\n"
-        "             if m.split('.')[0] in ('jax', 'jaxlib', 'scasml_gp_tpu'))\n"
+        + load
+        + "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'optax', 'scasml_gp_tpu'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
