@@ -57,6 +57,31 @@ Phases, each printing its own lines:
               against the JAX package's committed metrics.json, the
               evaluation counters, and the kernel against posterior_block
               at the sweeps' new shapes (a 100 + 20 point GP; M = 15).
+  9. large-n: (a) the dense and the distributed (dual-CG) trainer on one
+              problem both take (d=20, 2000 + 200 points, untuned): train
+              times, CG iterations, final residuals, loss histories, and
+              their predictions at 1200 points within rel 2e-2; (b) the
+              users' large-N path, runner --dim 20 --variant full_history
+              --num-domain 8192 --num-boundary 512, flagless (the tune's 20
+              candidates and the run's train through the distributed
+              trainer, none through the dense one; into
+              results/smoke_large_n/): Gram assembly, per-candidate train
+              and tune times, GEMVs with K against their bandwidth bound, CG
+              iterations, final residuals, peak device memory, kernel
+              launches, rel-L2 of GP (< 0.03), MLP and SCaSML (< GP), and
+              the kernel against posterior_block against 8 704 training rows.
+  10. serve:  phase 5's tuned surrogate through save_surrogate /
+              load_surrogate (results/smoke_serve/) and a SurrogateServer
+              (buckets 256, 1024, 4096; full-history ScaSML): requests of 33,
+              1000 and 5000 rows through Python and serve_http on 127.0.0.1,
+              predict and gradient within 2e-4 of the direct calls, HTTP
+              equal to Python, two identical /solve requests bitwise equal,
+              stats() counted; p50 latency per endpoint and bucket over 20
+              requests.
+  11. debug:  a full-history u_solve(2, 2, M=3) with debug_checks=True
+              bitwise equal to the unchecked one under the same seed, a NaN
+              input row raising the port's error naming an aten op, and the
+              slowdown.
 Kernel times are CUDA-event times of calls back to back as a caller sees
 them (``ms`` and ``plain_ms``, the host's launch cost included, as in every
 earlier version of this script) and with the stream held until every call is
@@ -164,7 +189,7 @@ def compare_kernel(x, fused, x_dom, x_bdy, r, gamma, d, flags, what,
                    repeat=False):
     """Launch the kernel and its plain version on x; raise on any element
     outside rtol = atol = 2e-4 (and with ``repeat`` unless a second launch
-    gives the same bits); return the max abs error."""
+    gives the same bits); return the max abs error of each output."""
     import torch
 
     from scasml_gp_torch.gp import fused_posterior as fp
@@ -174,7 +199,7 @@ def compare_kernel(x, fused, x_dom, x_bdy, r, gamma, d, flags, what,
     again = fp.fused_posterior(x, fused, *flags) if repeat else got
     ref = posterior_block(x, x_dom, x_bdy, r, gamma, d, *flags)
     torch.cuda.synchronize()
-    worst = 0.0
+    worst = {}
     for name, a, a2, b in zip(ref._fields, got, again, ref):
         check(a2 is None or torch.equal(a, a2),
               f"two launches differ in {name} ({what}, flags {flags})")
@@ -187,13 +212,14 @@ def compare_kernel(x, fused, x_dom, x_bdy, r, gamma, d, flags, what,
         check(not bool((err > ATOL + RTOL * b.abs()).any()),
               f"kernel != plain for {name} ({what}, want_grad={flags[0]}, "
               f"want_ops={flags[1]}): max err {float(err.max()):.3g}")
-        worst = max(worst, float(err.max()))
+        worst[name] = float(err.max())
     return worst
 
 
-def kernel_record(x, fused, flags, plain, max_abs_err):
+def kernel_record(x, fused, flags, plain, errs):
     """Times of the kernel (back to back and device) and of ``plain`` (back
-    to back) on x, with the call's bound and the kernel's share of it."""
+    to back) on x, with the call's bound and the kernel's share of it;
+    ``errs`` is compare_kernel's max abs error by output."""
     from scasml_gp_torch.gp import fused_posterior as fp
     from scasml_gp_torch.measure import bound, event_ms
 
@@ -204,7 +230,8 @@ def kernel_record(x, fused, flags, plain, max_abs_err):
     b_ms, b_by = bound(x.shape[0], fused.y.shape[0], fused.dim + 1, *flags)
     return {"rows": x.shape[0], "F": fused.dim + 1,
             "splits": fp.launch_plan(x, fused, *flags).splits,
-            "max_abs_err": max_abs_err, "ms": event_ms(kernel), "device_ms": device_ms,
+            "max_abs_err": max(errs.values()), "max_abs_err_by_output": errs,
+            "ms": event_ms(kernel), "device_ms": device_ms,
             "plain_ms": event_ms(plain), "bound_ms": b_ms, "bound_by": b_by,
             "share_of_bound": b_ms / device_ms, "library_ms": None}
 
@@ -213,12 +240,15 @@ def describe(rec):
     return (f"kernel {rec['ms']:.4f} ms back to back (device {rec['device_ms']:.4f}; "
             f"S={rec['splits']}), plain {rec['plain_ms']:.4f} ms, bound "
             f"{1e3 * rec['bound_ms']:.2f} us ({rec['bound_by']}), share of it on "
-            f"the device {rec['share_of_bound']:.3f}, max abs err {rec['max_abs_err']:.3g}")
+            f"the device {rec['share_of_bound']:.3f}, max abs err {rec['max_abs_err']:.3g} ("
+            + ", ".join(f"{k} {v:.3g}" for k, v in rec["max_abs_err_by_output"].items())
+            + ")")
 
 
 def runner_phase(dev, smi):
     """Phase 5: the flagless full-history runner path; returns the kernel
-    records it adds to the JSON line and the tuned config."""
+    records it adds to the JSON line, the tuned config and the tuned GP
+    trained on the harness's points."""
     import torch
 
     import scasml_gp_torch as port
@@ -326,7 +356,7 @@ def runner_phase(dev, smi):
         rec["launches"] = {"tune": tune_launches.get(flags, 0),
                            "run": run_launches.get(flags, 0),
                            "u_solve": solve_launches.get(flags, 0)}
-    return records, config
+    return records, config, gp
 
 
 EXTRA_D = 100
@@ -834,6 +864,337 @@ def sweeps_phase(dev, smi, tuned):
     return {flags: {"launches": {h: launches[h].get(flags, 0) for h in SWEEPS},
                     **records[flags]} for flags in MAIN_SPECS}
 
+LARGE_DIR = "results/smoke_large_n"
+LARGE_N, LARGE_NB = 8192, 512      # reports/campaign_largeN: phi = 33 280
+BOTH_N, BOTH_NB = 2000, 200        # phi = 8 200: the dense trainer takes it too
+LARGE_CHECK_ROWS = 1200
+
+
+def large_n_phase(dev, smi):
+    """Phase 9: (a) the dense and the distributed trainer on one problem
+    both take; (b) the users' large-N runner path, flagless, where 'auto'
+    sends the tune and the train to the distributed trainer.  Returns the
+    kernel records at the path's shapes."""
+    import statistics
+
+    import torch
+
+    import scasml_gp_torch as port
+    from scasml_gp_torch.gp import distributed
+    from scasml_gp_torch.gp import fused_posterior as fp
+    from scasml_gp_torch.gp.posterior import posterior_block
+    from scasml_gp_torch.harness import runner
+    from scasml_gp_torch.measure import HBM_RATE
+
+    # 9a. dense against distributed at phi = 8 200, the untuned kernel
+    eq = port.GradDependentNonlinear(n_input=D + 1)
+    x_dom, x_bdy = eq.generate_data(BOTH_N, BOTH_NB,
+                                    torch.Generator(device=dev).manual_seed(1234), device=dev)
+    x_eval = eq.geometry().sample_domain(torch.Generator(device=dev).manual_seed(3),
+                                         LARGE_CHECK_ROWS, device=dev)
+    gps, secs = {}, {}
+    for backend in ("dense", "distributed"):
+        gps[backend] = port.GPGradDependentNonlinear(
+            eq, port.GPConfig(train_backend=backend), device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if backend == "dense":
+            gps[backend].GPsolver(x_dom, x_bdy)
+        else:
+            cfg = gps[backend].config
+            out = distributed.distributed_gpsolver(
+                gps[backend], x_dom, x_bdy, gn_steps=cfg.dist_gn_steps,
+                cg_tol=cfg.dist_cg_tol, cg_maxiter=cfg.dist_cg_maxiter)
+        torch.cuda.synchronize()
+        secs[backend] = time.perf_counter() - t0
+    preds = {k: gp.predict(x_eval) for k, gp in gps.items()}
+    rel = rel_l2(preds["distributed"], preds["dense"])
+    resid = float(out.final_residual)
+    print(f"[large-n] {smi}; d={D}, N={BOTH_N} + {BOTH_NB} (phi {4 * BOTH_N + BOTH_NB}), "
+          f"untuned: dense train {secs['dense']:.3f} s (20 Newton steps), distributed "
+          f"{secs['distributed']:.3f} s ({out.loss_history.shape[0]} Gauss-Newton steps, "
+          f"CG iterations {out.cg_iterations.tolist()}), final_residual {resid:.3g}; "
+          f"predictions at {LARGE_CHECK_ROWS} points differ by rel {rel:.3g}", flush=True)
+    print("[large-n] loss dense " + " ".join(
+        f"{v:.6g}" for v in gps["dense"].state.loss_history.tolist()), flush=True)
+    print("[large-n] loss distributed " + " ".join(
+        f"{v:.6g}" for v in gps["distributed"].state.loss_history.tolist()), flush=True)
+    check(math.isfinite(resid), f"distributed final_residual {resid} not finite")
+    check(rel < 2e-2, f"dense and distributed predictions differ by rel {rel}")
+    del gps, preds
+
+    # 9b. runner --num-domain 8192 --num-boundary 512, flagless
+    config = port.RunConfig(
+        dim=D, num_domain=LARGE_N, num_boundary=LARGE_NB, test_domain=N_TEST_DOM,
+        test_boundary=N_TEST_BDY, seed=1234, harness="SimpleUniform",
+        save_path=LARGE_DIR,
+        picard=port.PicardConfig(variant="full_history", n=2, rho=2, M=3))
+    # Every Gram assembly and every train of the distributed trainer timed
+    # (host clock, synchronized) and kept with its inputs and output; the
+    # dense trainer only counted, as it must not run.
+    trains, grams, dense = [], [], []
+
+    def timed(record, fn):
+        def call(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            record(time.perf_counter() - t0, args, out)
+            return out
+        return call
+
+    gram, make, dense_train = (distributed.gram_matrix,
+                               distributed.make_distributed_train, port.GP._train)
+    distributed.gram_matrix = timed(lambda t, a, o: grams.append(t), gram)
+    distributed.make_distributed_train = lambda *a, **kw: timed(
+        lambda t, args, out: trains.append((t, args, out)), make(*a, **kw))
+    port.GP._train = lambda *a, **kw: dense.append(1) or dense_train(*a, **kw)
+    try:
+        torch.cuda.reset_peak_memory_stats(dev)
+        torch.cuda.synchronize()
+        fp.reset_launches()
+        t0 = time.perf_counter()
+        config, tuned = runner.tuned_config(config, dev)
+        torch.cuda.synchronize()
+        tune_s = time.perf_counter() - t0
+        tune_launches = dict(fp.launches_by_flags)
+        tune_trains = len(trains)
+        tune_peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        torch.cuda.reset_peak_memory_stats(dev)
+        fp.reset_launches()
+        runner.run(config, device=dev, make_plots=False)
+        torch.cuda.synchronize()
+        run_launches = dict(fp.launches_by_flags)
+        run_peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    finally:
+        distributed.make_distributed_train = make
+        distributed.gram_matrix = gram
+        port.GP._train = dense_train
+    with open(os.path.join(runner.run_dir(config), "SimpleUniform", "metrics.json")) as fh:
+        written = json.load(fh)
+    rel = {k: written["metrics"][k]["rel_L2"] for k in SOLVERS}
+    train_s = [t for t, _, _ in trains]
+    iters = [out.cg_iterations.tolist() for _, _, out in trains]
+    # GEMVs with K per train: each CG's iterations as run (pcg runs up to
+    # CHECK_EVERY - 1 frozen ones past its stop), its r0, each step's b*
+    # and the final residual.
+    every, cap = distributed.CHECK_EVERY, config.gp.dist_cg_maxiter
+    matvecs = sum(min(cap, -(-k // every) * every) + 2 for it in iters for k in it)
+    gemv_bound_ms = 1e3 * 4 * (4 * LARGE_N + LARGE_NB) ** 2 / HBM_RATE
+    print(f"[large-n] {smi}; runner --dim {D} --variant full_history --num-domain "
+          f"{LARGE_N} --num-boundary {LARGE_NB} (phi {4 * LARGE_N + LARGE_NB}), "
+          f"flagless: tune {len(tuned.table)} candidates in {tune_s:.3f} s; winner "
+          f"ridge_scale={config.gp.ridge_scale} gamma_scale={config.gp.gamma_scale} "
+          f"score {tuned.score:.6g}", flush=True)
+    print(f"[large-n] Gram assembly {statistics.median(grams):.3f} s median of "
+          f"{len(grams)}; train per candidate {statistics.median(train_s[:tune_trains]):.3f} s "
+          f"median ({min(train_s[:tune_trains]):.3f}-{max(train_s[:tune_trains]):.3f}); "
+          f"the run's train {train_s[-1]:.3f} s; {matvecs} GEMVs with K in the "
+          f"{len(trains)} trains, {1e3 * (sum(train_s) - sum(grams)) / matvecs:.3f} ms "
+          f"each with the CG's vector work, Gram assembly excluded (bound: K's bytes "
+          f"over 3.35 TB/s, {gemv_bound_ms:.3f} ms); host clock, synchronized; peak "
+          f"device memory tune {tune_peak:.2f} GiB, run {run_peak:.2f} GiB", flush=True)
+    for (cfg, score), it, (_, _, out), t in zip(tuned.table, iters, trains, train_s):
+        print(f"[large-n] candidate ridge_scale={cfg.ridge_scale:g} gamma_scale="
+              f"{cfg.gamma_scale:g}: score {score:.6g}, train {t:.3f} s, CG iterations "
+              f"{it}, final_residual {float(out.final_residual):.3g}", flush=True)
+    out = trains[-1][2]
+    print(f"[large-n] the run's train: CG iterations {iters[-1]}, final_residual "
+          f"{float(out.final_residual):.3g}, loss " + " ".join(
+              f"{v:.6g}" for v in out.loss_history.tolist()), flush=True)
+    print(f"[large-n] kernel launches: tune {by_flags_str(tune_launches)}, run "
+          f"{by_flags_str(run_launches)}", flush=True)
+    print(f"[large-n] rel-L2: GP {rel['GP']:.6f}, MLP {rel['MLP']:.6f}, SCaSML "
+          f"{rel['SCaSML']:.6f} (JAX package, 10 reps: GP 0.0181, SCaSML 0.0115)", flush=True)
+    check(not dense, f"the large-N path trained {len(dense)} times through the dense trainer")
+    check(tune_trains == TUNE_CANDIDATES and len(trains) == TUNE_CANDIDATES + 1,
+          f"{tune_trains} tune and {len(trains) - tune_trains} run trains went through "
+          f"the distributed trainer, expected {TUNE_CANDIDATES} and 1")
+    check(all(math.isfinite(float(o.final_residual)) for _, _, o in trains),
+          "a final_residual is not finite")
+    check(key_tree(written) == METRICS_KEYS, "large-N metrics.json keys")
+    for flags in MAIN_SPECS:
+        check(tune_launches.get(flags, 0) > 0 and run_launches.get(flags, 0) > 0,
+              f"large-N: the kernel {flags} was not launched in the tune and run")
+    check(rel["GP"] < 0.03, f"large-N GP rel-L2 {rel['GP']} not below 0.03")
+    check(rel["SCaSML"] < rel["GP"],
+          f"large-N SCaSML rel-L2 {rel['SCaSML']} not below GP {rel['GP']}")
+
+    # The kernel against its plain version with the run's weights at the
+    # run's shapes, against 8 704 training rows.
+    (x_dom, x_bdy, _, _, gamma, _), w = trains[-1][1], trains[-1][2].right_vector
+    st = port.GPState(x_dom=x_dom, x_bdy=x_bdy, right_vector=w, sol=trains[-1][2].sol,
+                      gamma=gamma, loss_history=trains[-1][2].loss_history)
+    fused = st.fused_inputs()
+    gen_x = torch.Generator(device=dev).manual_seed(10)
+    records = {}
+    for flags, (caller, n) in FH_SPECS.items():
+        x = eq.geometry().sample_domain(gen_x, n, device=dev)
+        errs = compare_kernel(x, fused, x_dom, x_bdy, w, gamma, D, flags,
+                              f"large-N GP, n={n}", repeat=True)
+        rec = kernel_record(x, fused, flags, lambda: posterior_block(
+            x, x_dom, x_bdy, w, gamma, D, *flags), errs)
+        rec["training_rows"] = fused.y.shape[0]
+        rec["launches"] = {"tune": tune_launches.get(flags, 0),
+                           "run": run_launches.get(flags, 0)}
+        records[flags] = rec
+        print(f"[large-n] kernel {caller} (want_grad={flags[0]:d}, want_ops={flags[1]:d}) "
+              f"n={n} against {rec['training_rows']} training rows: {describe(rec)} ({smi})",
+              flush=True)
+    return records
+
+
+SERVE_DIR = "results/smoke_serve"
+SERVE_BUCKETS = (256, 1024, 4096)
+SERVE_ROWS = (33, 1000, 5000)      # 5000 is chunked: 4096 + 904 in the 1024 bucket
+SERVE_ATOL = 2e-4
+SERVE_REPEATS = 20
+
+
+def post(url, x):
+    import urllib.request
+
+    import numpy as np
+
+    req = urllib.request.Request(url, data=json.dumps({"points": x.tolist()}).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=300) as r:
+        return np.asarray(json.load(r)["values"], np.float32)
+
+
+def serve_phase(dev, smi, gp):
+    """Phase 10: phase 5's tuned surrogate saved, loaded and served in
+    buckets through Python and HTTP."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from scasml_gp_torch.gp import fused_posterior as fp
+    from scasml_gp_torch.picard.scasml import ScaSMLFullHistory
+    from scasml_gp_torch.serve import (SurrogateServer, load_surrogate, save_surrogate,
+                                       serve_http)
+
+    save_surrogate(SERVE_DIR, gp)
+    loaded = load_surrogate(SERVE_DIR)
+    check(loaded.device.type == "cuda", f"load_surrogate put the surrogate on {loaded.device}")
+    server = SurrogateServer(loaded, ScaSMLFullHistory(loaded.equation, loaded),
+                             buckets=SERVE_BUCKETS, n=2, rho=None, M=3)
+    endpoints = ("predict", "gradient", "solve")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    server.warmup(endpoints)
+    print(f"[serve] {smi}; warmup of {len(endpoints)} endpoints x buckets "
+          f"{SERVE_BUCKETS}: {time.perf_counter() - t0:.3f} s", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    xs = {n: gp.equation.geometry().sample_domain(gen, n, device=dev) for n in SERVE_ROWS}
+    httpd = serve_http(server, port=0)
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    requests = warm = server.requests
+    torch.cuda.synchronize()
+    fp.reset_launches()
+    try:
+        for n, x in xs.items():
+            direct = {"predict": gp.predict(x).cpu().numpy(),
+                      "gradient": gp.compute_gradient(x).cpu().numpy()}
+            x_np = x.cpu().numpy()
+            for ep in endpoints:
+                py = getattr(server, ep)(x_np)
+                http = post(f"{base}/{ep}", x_np)
+                requests += 2
+                check(py.shape == http.shape == (n, 1 if ep != "gradient" else D + 1),
+                      f"/{ep} of {n} rows: shapes {py.shape}, {http.shape}")
+                check(np.array_equal(py, http), f"/{ep} of {n} rows: HTTP != Python")
+                if ep == "solve":
+                    again = post(f"{base}/solve", x_np)
+                    requests += 1
+                    check(np.array_equal(again, http),
+                          f"two identical /solve requests of {n} rows differ")
+                    check(np.isfinite(py).all(), f"/solve of {n} rows not finite")
+                    err = float(np.abs(py - direct["predict"]).max())
+                    print(f"[serve] /solve {n} rows: repeat bitwise equal; largest "
+                          f"correction {err:.4g}", flush=True)
+                else:
+                    err = float(np.abs(py - direct[ep]).max())
+                    print(f"[serve] /{ep} {n} rows: max abs err against the direct "
+                          f"call {err:.3g}", flush=True)
+                    check(err < SERVE_ATOL, f"/{ep} of {n} rows off the direct call by {err}")
+        torch.cuda.synchronize()
+        launches = dict(fp.launches_by_flags)
+        st = server.stats()
+        check(st["requests"] == requests and st["rows"] >= sum(SERVE_ROWS),
+              f"stats {st} (expected {requests} requests)")
+        check(set(st["endpoint_seconds"]) == set(endpoints), f"stats {st}")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    print(f"[serve] kernel launches of the {requests - warm} requests after the warmup: "
+          f"{by_flags_str(launches)}", flush=True)
+    for flags in MAIN_SPECS:
+        check(launches.get(flags, 0) > 0, f"serving never launched the kernel {flags}")
+
+    for b in SERVE_BUCKETS:
+        x_np = gp.equation.geometry().sample_domain(gen, b, device=dev).cpu().numpy()
+        p50 = {}
+        for ep in endpoints:
+            fn = getattr(server, ep)
+            times = []
+            for _ in range(SERVE_REPEATS):
+                t0 = time.perf_counter()
+                fn(x_np)  # returns numpy: the device has finished
+                times.append(1e3 * (time.perf_counter() - t0))
+            p50[ep] = statistics.median(times)
+        print(f"[serve] {smi}; bucket {b}: p50 over {SERVE_REPEATS} requests (host clock, "
+              "Python endpoint): " + ", ".join(f"{ep} {v:.3f} ms" for ep, v in p50.items()),
+              flush=True)
+    return launches
+
+
+def debug_phase(dev, smi, gp):
+    """Phase 11: a full-history u_solve(2, 2, M=3) under --debug-checks."""
+    import torch
+
+    from scasml_gp_torch.gp import fused_posterior as fp
+    from scasml_gp_torch.picard.scasml import ScaSMLFullHistory
+    from scasml_gp_torch.utils.debug import FloatCheckError
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    x = torch.cat(gp.equation.generate_test_data(N_TEST_DOM, N_TEST_BDY, gen, device=dev))
+    solvers = {k: ScaSMLFullHistory(gp.equation, gp, seed=5, debug_checks=k)
+               for k in (False, True)}
+    outs, secs, launches = {}, {}, {}
+    for k, sca in solvers.items():
+        sca.u_solve(2, 2, x, M=3)  # warm-up
+        sca.gen.manual_seed(5)
+        torch.cuda.synchronize()
+        fp.reset_launches()
+        t0 = time.perf_counter()
+        outs[k] = sca.u_solve(2, 2, x, M=3)
+        torch.cuda.synchronize()
+        secs[k] = time.perf_counter() - t0
+        launches[k] = dict(fp.launches_by_flags)
+    check(torch.equal(outs[True], outs[False]),
+          "the checked solve differs from the unchecked one")
+    check(launches[True] == launches[False] == EXPECTED_FH_SOLVE_LAUNCHES,
+          f"kernel launches checked {launches[True]}, unchecked {launches[False]}")
+    x_nan = x.clone()
+    x_nan[7, 3] = float("nan")
+    try:
+        solvers[True].u_solve(2, 2, x_nan, M=3)
+    except FloatCheckError as e:
+        raised = str(e)
+    else:
+        raised = None
+    check(raised is not None and "nan generated by aten op aten." in raised,
+          f"a NaN input row raised {raised!r}")
+    print(f"[debug] {smi}; ScaSMLFullHistory u_solve(2, 2, M=3) on {x.shape[0]} points: "
+          f"checked {1e3 * secs[True]:.3f} ms, unchecked {1e3 * secs[False]:.3f} ms "
+          f"({secs[True] / secs[False]:.1f}x, host clock, synchronized), bitwise equal, "
+          f"kernel launches {by_flags_str(launches[True])} in each; a NaN in row 7 "
+          f"raised: {raised}", flush=True)
+    return launches[True]
+
 
 def main():
     import torch
@@ -908,17 +1269,19 @@ def main():
     }
     geom = eq.geometry()
     xs = {n: geom.sample_domain(gen, n, device=dev) for n in ROWS}
-    max_err = {f: 0.0 for f in FLAGS}
+    max_err = {f: {} for f in FLAGS}
     for gname, gamma in gammas.items():
         fused = fp.prepare_inputs(x_dom, x_bdy, r, gamma, D)
         for n, x in xs.items():
             for flags in FLAGS:
-                err = compare_kernel(x, fused, x_dom, x_bdy, r, gamma, D, flags,
-                                     f"{gname}, n={n}", repeat=True)
-                max_err[flags] = max(max_err[flags], err)
+                errs = compare_kernel(x, fused, x_dom, x_bdy, r, gamma, D, flags,
+                                      f"{gname}, n={n}", repeat=True)
+                for k, v in errs.items():
+                    max_err[flags][k] = max(max_err[flags].get(k, 0.0), v)
     print(f"[kernel] 2 gammas x {len(ROWS)} row counts x 4 specialisations "
           f"agree with posterior_block at rtol=atol={RTOL} and repeat bitwise; "
-          f"max abs err by (want_grad, want_ops): {by_flags_str(max_err)}",
+          f"max abs err by (want_grad, want_ops): "
+          f"{by_flags_str({f: max(e.values()) for f, e in max_err.items()})}",
           flush=True)
 
     gamma = gammas["isotropic"]
@@ -976,7 +1339,7 @@ def main():
           f"ScaSML rel-L2 {e_sca} not below GP {e_gp} and 0.10")
 
     # 5. the flagless full-history runner path
-    fh, tuned = runner_phase(dev, smi)
+    fh, tuned, tuned_gp = runner_phase(dev, smi)
 
     # 6. the three other PDE families at d=100
     extra = extra_phase(dev, smi)
@@ -986,6 +1349,15 @@ def main():
 
     # 8. the four sweep harnesses with the tuned config of phase 5
     sweeps = sweeps_phase(dev, smi, tuned)
+
+    # 9. the large-N trainer: against the dense one, then the runner at N = 8192
+    large_n = large_n_phase(dev, smi)
+
+    # 10. serving phase 5's tuned surrogate
+    serve_launches = serve_phase(dev, smi, tuned_gp)
+
+    # 11. --debug-checks
+    debug_launches = debug_phase(dev, smi, tuned_gp)
 
     kernels = []
     for f, (caller, _) in MAIN_SPECS.items():
@@ -1002,6 +1374,9 @@ def main():
             "sine_d100": extra[f],
             "fit_ml": fit_ml[f],
             "sweeps": sweeps[f],
+            "large_n": large_n[f],
+            "serve": {"launches": serve_launches.get(f, 0)},
+            "debug_checks": {"launches": debug_launches.get(f, 0)},
         }
         if f == (True, False):  # the gradient kernel with the operators on too
             rec["sine_d100_with_ops"] = extra[(True, True)]

@@ -8,9 +8,10 @@ checked against; the port never imports it.
 - ``equations``  PDE definitions (GradDependentNonlinear, HJB, AllenCahn,
                  SineNonlinear) and torch.Generator-driven samplers.
 - ``gp``         closed-form RBF derivative kernels, Gram assembly, the
-                 equilibrated float32 Cholesky, damped Newton, and the
-                 posterior (plain PyTorch on the CPU, the CUDA kernel on a GPU);
-                 the posterior variance; the Cole-Hopf (HJB) and
+                 equilibrated float32 Cholesky, damped Newton, the large-N
+                 dual-CG trainer (``gp.distributed``), and the posterior
+                 (plain PyTorch on the CPU, the CUDA kernel on a GPU); the
+                 posterior variance; the Cole-Hopf (HJB) and
                  reaction-semigroup (Allen-Cahn) surrogates.
 - ``picard``     static schedules, the quadrature and full-history
                  multilevel Picard recursions, MLP and ScaSML in both variants,
@@ -18,7 +19,10 @@ checked against; the port never imports it.
 - ``harness``    the runner CLI and the six experiment harnesses;
                  ``gp.tuning`` is the ScaSML-judged kernel tuner and
                  ``gp.marginal`` the marginal-likelihood fit (--fit-ml).
-- ``utils``      the nvcc build of ``csrc/*.cu``, logging and profiling.
+- ``serve``      checkpoints (shared with the JAX package), the bucketed
+                 SurrogateServer and its stdlib HTTP front end.
+- ``utils``      the nvcc build of ``csrc/*.cu``, the --debug-checks NaN
+                 checks, logging and profiling.
 """
 
 import torch as _torch

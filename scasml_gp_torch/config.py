@@ -70,8 +70,8 @@ class GPConfig:
     # The CUDA kernel bounds its own working set and ignores it.
     eval_chunk: Optional[int] = None
     posterior_backend: str = "auto"
-    # 'dense' | 'auto' (dense while phi = 4N + Nb <= dense_phi_max);
-    # the distributed trainer is not ported.
+    # 'dense' | 'distributed' (the dual-CG trainer, gp/distributed.py) |
+    # 'auto' (dense while phi = 4N + Nb <= dense_phi_max, then distributed)
     train_backend: str = "auto"
     dense_phi_max: int = 8400
     dist_gn_steps: int = 8
@@ -88,7 +88,7 @@ class PicardConfig:
     M: int = 3                      # sample base (full-history variant)
     variant: str = "quadrature"     # 'quadrature' | 'full_history'
     batch_chunk: Optional[int] = None  # chunk the test batch to bound memory
-    debug_checks: bool = False      # not ported
+    debug_checks: bool = False      # NaN check of every rollout op (utils/debug.py)
 
 
 @dataclasses.dataclass(frozen=True)

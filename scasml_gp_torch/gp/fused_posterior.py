@@ -21,7 +21,9 @@ counts one per call.
 ``fused_posterior`` launches the kernel for CUDA tensors and counts the
 launch in ``launches``.  For CPU tensors it runs ``stacked_posterior``, the
 same stacked computation in plain PyTorch.  There is no fallback between the
-two: a CUDA tensor launches the kernel or raises.
+two: a CUDA tensor launches the kernel or raises.  Under the debug NaN
+checks (utils/debug.py), which cannot see inside the kernel, it checks its
+own outputs.
 """
 
 from __future__ import annotations
@@ -30,10 +32,11 @@ import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils._python_dispatch import _disable_current_modes
 
 from scasml_gp_torch.gp.kernels import pair_stats, row_stats, split_gamma
 from scasml_gp_torch.gp.posterior import PosteriorOut, _split_r
-from scasml_gp_torch.utils import build
+from scasml_gp_torch.utils import build, debug
 
 # Kernel launches made by fused_posterior, in total and by (want_grad,
 # want_ops) specialisation; reset with reset_launches.
@@ -247,6 +250,13 @@ def fused_posterior(x, fused: FusedInputs, want_grad: bool = False,
         return stacked_posterior(x.to(torch.float32), fused, want_grad, want_ops)
     if not x.is_cuda:
         raise ValueError(f"fused_posterior: unsupported device {x.device}")
+    if debug.active():
+        # The NaN checks cannot see inside the kernel: launch it with them
+        # off, then check its outputs here.
+        with _disable_current_modes():
+            out = fused_posterior(x, fused, want_grad, want_ops)
+            debug.check("fused_posterior (CUDA kernel)", out)
+        return out
     # Every line below runs on the host once per call, and the small calls
     # of a solve take longer on the host than on the device: keep it short.
     global launches

@@ -139,7 +139,7 @@ def posterior_eval(x, x_dom, x_bdy, r, gamma, dim: int,
         )
     if shard_dom is not None:
         raise NotImplementedError(
-            "shard_dom: the sharded posterior is not ported (ROADMAP Queue 1 F)")
+            "shard_dom: the sharded posterior is not ported (ROADMAP Queue 1 F2)")
     if x.is_cuda:
         from scasml_gp_torch.gp import fused_posterior as fp
 

@@ -1,6 +1,6 @@
 """Gaussian-process PDE surrogate: damped-Newton training and evaluation.
 
-Port of the dense path of ``scasml_gp_tpu/gp/solver.py``.  The loss is
+Port of ``scasml_gp_tpu/gp/solver.py``.  The loss is
 
     loss(sol) = b(sol)^T (K + nugget I)^{-1} b(sol),
     b = [z1, g_bdy, z3, F(z1, z3, z5), z5],
@@ -9,7 +9,9 @@ minimised by damped Newton with the analytic Hessian, an 8-way backtracking
 line search and the reference's damping schedule.  (K + nugget I)^{-1} is
 formed once, so each step is matrix products, one 3N x 3N solve and
 elementwise work.  The step loop is a Python loop whose stop/accept/damping
-state stays in device tensors: it makes no host sync.
+state stays in device tensors: it makes no host sync.  Past
+``GPConfig.dense_phi_max`` training goes to the dual-CG trainer of
+gp/distributed.py instead.
 """
 
 from __future__ import annotations
@@ -184,7 +186,11 @@ class GP:
         steps = cfg.gn_steps if GN_steps is None else int(GN_steps)
         x_dom = torch.as_tensor(x_t_domain, dtype=torch.float32, device=self.device)
         x_bdy = torch.as_tensor(x_t_boundary, dtype=torch.float32, device=self.device)
-        self._check_train_backend(x_dom, x_bdy)
+        if self._resolve_train_backend(x_dom, x_bdy) == "distributed":
+            if sol0 is not None:
+                raise ValueError("sol0 is the dense trainer's initial point; the "
+                                 "distributed trainer starts from zero")
+            return self._gpsolver_distributed(x_dom, x_bdy, GN_steps)
         bdy_g = self.equation.g(x_bdy)[:, 0].to(torch.float32)
         rhs = self.form.rhs_f(x_dom).to(torch.float32)
         gamma = torch.tensor(self.gamma, dtype=torch.float32, device=self.device)
@@ -197,20 +203,37 @@ class GP:
         self.loss_history = out.loss_history
         return self.predict(x_dom)
 
-    def _check_train_backend(self, x_dom, x_bdy) -> None:
+    def _resolve_train_backend(self, x_dom, x_bdy) -> str:
+        """'dense' or 'distributed' per ``config.train_backend``: 'auto'
+        takes the dual-CG trainer (gp/distributed.py) once phi = 4N + Nb
+        exceeds ``dense_phi_max``."""
         cfg = self.config
         backend = cfg.train_backend
         if backend == "auto":
             phi = 4 * x_dom.shape[0] + x_bdy.shape[0]
             backend = "distributed" if phi > cfg.dense_phi_max else "dense"
-        if backend == "distributed":
-            raise NotImplementedError(
-                "the distributed (dual-CG) trainer is not ported; phi = "
-                f"{4 * x_dom.shape[0] + x_bdy.shape[0]} > dense_phi_max = "
-                f"{cfg.dense_phi_max} needs it (ROADMAP Queue 1 F)"
-            )
-        if backend != "dense":
+        if backend not in ("dense", "distributed"):
             raise ValueError(f"unknown train_backend {cfg.train_backend!r}")
+        if backend == "distributed" and (cfg.laplacian != "exact" or cfg.parity_fp16):
+            raise ValueError(
+                "the distributed trainer supports only the exact-Laplacian "
+                "fp32 kernel (no parity modes)"
+            )
+        return backend
+
+    def _gpsolver_distributed(self, x_dom, x_bdy,
+                              GN_steps: Optional[int] = None) -> torch.Tensor:
+        """Large-N training through the dual-CG trainer; an explicit
+        ``GN_steps`` (ComputingBudget's budget axis) overrides
+        ``config.dist_gn_steps``."""
+        from scasml_gp_torch.gp.distributed import distributed_gpsolver
+
+        cfg = self.config
+        steps = cfg.dist_gn_steps if GN_steps is None else int(GN_steps)
+        distributed_gpsolver(self, x_dom, x_bdy, gn_steps=steps,
+                             cg_tol=cfg.dist_cg_tol, cg_maxiter=cfg.dist_cg_maxiter)
+        self.loss_history = self.state.loss_history
+        return self.predict(x_dom)
 
     def _train(self, x_dom, x_bdy, bdy_g, rhs, gamma, nugget, steps, damping,
                grad_tol, sol0: Optional[torch.Tensor] = None) -> _TrainOut:

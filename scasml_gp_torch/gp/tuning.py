@@ -1,8 +1,9 @@
 """Grid selection of the GP kernel, judged by ScaSML's own correction.
 
-Port of the dense path of ``scasml_gp_tpu/gp/tuning.py``.  Every candidate
-(time_scale, ridge_scale, gamma_scale, nugget) trains at full size through
-``GP._train``, and is scored by
+Port of ``scasml_gp_tpu/gp/tuning.py``.  Every candidate (time_scale,
+ridge_scale, gamma_scale, nugget) trains at full size, through ``GP._train``
+or past ``dense_phi_max`` through the dual-CG trainer (gp/distributed.py),
+and is scored by
 
     score = mean over fresh interior points of u_breve(X_val)^2,
 
@@ -50,13 +51,16 @@ def validation_score(gp, x_val_dom, x_val_bdy, boundary_weight: float = 1.0):
 def scasml_judge(gp_cls, equation, base: GPConfig, x_dom, x_bdy, steps: int,
                  seed: int = 0, val_fraction: float = 0.4,
                  judge_n: Optional[int] = None, judge_M: int = 8,
-                 judge_score: str = "energy", judge_val_sets: int = 3):
+                 judge_score: str = "energy", judge_val_sets: int = 3,
+                 backend: str = "dense"):
     """The ScaSML judge of ``tune_gp`` and of the marginal-likelihood fit
     (gp/marginal.py): returns ``score(gamma, nugget) -> float``, which trains
     a candidate kernel at full size on (x_dom, x_bdy) through ``GP._train``
-    and scores the energy of its full-history ScaSML correction, averaged
-    over ``judge_val_sets`` sets of max(64, val_fraction N) fresh interior
-    points.  The judge's generator is reseeded before each set with the same
+    (``steps`` Newton steps) or, with ``backend='distributed'``, through the
+    dual-CG trainer (``base.dist_gn_steps`` steps whatever ``steps`` is, as
+    in the JAX package's tuner), and scores the energy of its full-history
+    ScaSML correction, averaged over ``judge_val_sets`` sets of
+    max(64, val_fraction N) fresh interior points.  The judge's generator is reseeded before each set with the same
     seed for every candidate (common random numbers).  ``judge_n`` None
     means depth 3 at d >= 100 and 2 below; any ``judge_score`` other than
     'cross' means 'energy'."""
@@ -80,9 +84,22 @@ def scasml_judge(gp_cls, equation, base: GPConfig, x_dom, x_bdy, steps: int,
         for i in range(judge_val_sets)
     ]
 
+    if backend == "distributed":
+        from scasml_gp_torch.gp.distributed import make_distributed_train
+
+        dist_train = make_distributed_train(
+            gp.form, equation.dim, gn_steps=base.dist_gn_steps,
+            cg_tol=base.dist_cg_tol, cg_maxiter=base.dist_cg_maxiter)
+
+        def train_rv(gamma, nugget):
+            return dist_train(x_dom, x_bdy, bg, rhs, gamma, nugget).right_vector
+    else:
+        def train_rv(gamma, nugget):
+            return gp._train(x_dom, x_bdy, bg, rhs, gamma, nugget, steps,
+                             base.damping, base.grad_tol).right_vector
+
     def score(gamma, nugget) -> float:
-        rv = gp._train(x_dom, x_bdy, bg, rhs, gamma, nugget, steps,
-                       base.damping, base.grad_tol).right_vector
+        rv = train_rv(gamma, nugget)
         # A new state per candidate: a state caches the kernel's stacked
         # weights (GPState.fused_inputs), so reusing one would evaluate the
         # previous candidate.
@@ -131,7 +148,10 @@ def tune_gp(
     """Grid-search the GP kernel on the device of ``x_dom``; candidates train
     at full size and are judged by their own ScaSML correction energy on
     fresh interior points (:func:`scasml_judge`).  Returns the winning
-    GPConfig and the score table."""
+    GPConfig and the score table.  ``train_backend`` 'auto' follows
+    ``GP._resolve_train_backend``; the distributed branch trains every
+    candidate with ``base.dist_gn_steps`` Gauss-Newton steps and ignores
+    ``gn_steps``, as the JAX package's does."""
     base = base or GPConfig()
     nuggets = nuggets or (base.nugget,)
     x_dom = torch.as_tensor(x_dom, dtype=torch.float32)
@@ -139,17 +159,16 @@ def tune_gp(
     x_bdy = torch.as_tensor(x_bdy, dtype=torch.float32, device=dev)
 
     if train_backend == "auto":
-        gp_cls(equation, base, device=dev)._check_train_backend(x_dom, x_bdy)
-    elif train_backend == "distributed":
-        raise NotImplementedError(
-            "the distributed (dual-CG) trainer is not ported (ROADMAP Queue 1 F)")
-    elif train_backend != "dense":
+        backend = gp_cls(equation, base, device=dev)._resolve_train_backend(x_dom, x_bdy)
+    elif train_backend in ("dense", "distributed"):
+        backend = train_backend
+    else:
         raise ValueError(f"unknown train_backend {train_backend!r}")
     steps = base.gn_steps if gn_steps is None else int(gn_steps)
     score_one = scasml_judge(
         gp_cls, equation, base, x_dom, x_bdy, steps, seed=seed,
         val_fraction=val_fraction, judge_n=judge_n, judge_M=judge_M,
-        judge_score=judge_score, judge_val_sets=judge_val_sets)
+        judge_score=judge_score, judge_val_sets=judge_val_sets, backend=backend)
 
     table = []
     best = None

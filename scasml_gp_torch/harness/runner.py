@@ -72,10 +72,7 @@ def check_ported(config: RunConfig) -> None:
     if config.mesh.data * config.mesh.model > 1 or config.mesh.data == -1:
         raise NotImplementedError(
             "a device mesh (--mesh-data/--mesh-model) is not ported "
-            "(ROADMAP Queue 1 F)")
-    if config.picard.debug_checks:
-        raise NotImplementedError(
-            "--debug-checks is not ported (ROADMAP Queue 1 J)")
+            "(ROADMAP Queue 1 F2)")
 
 
 def build_solvers(config: RunConfig, device):
@@ -212,13 +209,15 @@ def main(argv=None):
     parser.add_argument("--test-boundary", type=int, default=200)
     parser.add_argument("--train-backend", default="auto",
                         choices=["auto", "dense", "distributed"],
-                        help="GP trainer: dense Newton, or auto by problem "
-                             "size (the distributed trainer is not ported)")
+                        help="GP trainer: dense Newton, the dual-CG trainer "
+                             "(gp/distributed.py), or auto by problem size "
+                             "(distributed past phi = 4N + Nb > 8400)")
     parser.add_argument("--rho", type=int, default=2)
     parser.add_argument("--M", type=int, default=3)
     parser.add_argument("--batch-chunk", type=int, default=None)
     parser.add_argument("--debug-checks", action="store_true",
-                        help="not ported")
+                        help="check every op of the Picard rollouts for NaN and "
+                             "raise at the first (one host sync per op)")
     parser.add_argument("--mesh-data", type=int, default=1,
                         help="devices on the 'data' mesh axis; only 1 is ported")
     parser.add_argument("--mesh-model", type=int, default=1,

@@ -24,12 +24,13 @@ from scasml_gp_torch.picard.schedule import (
     count_evaluations_full_history,
     count_evaluations_quadrature,
 )
+from scasml_gp_torch.utils.debug import float_checked
 from scasml_gp_torch.utils.device import resolve_device
 
 
 class _PicardBase:
-    """Schedule cache, batch chunking, the solver's RNG stream and the
-    evaluation counter."""
+    """Schedule cache, batch chunking, the solver's RNG stream, the
+    evaluation counter and the debug NaN checks."""
 
     def __init__(self, equation: Equation, batch_chunk: Optional[int] = None,
                  center_z: Optional[bool] = None,
@@ -46,11 +47,7 @@ class _PicardBase:
             )
         if mesh is not None:
             raise NotImplementedError(
-                "a device mesh is not ported (ROADMAP Queue 1 F)")
-        if debug_checks:
-            raise NotImplementedError(
-                "debug_checks (checkify float checks) are not ported "
-                "(ROADMAP Queue 1 J)")
+                "a device mesh is not ported (ROADMAP Queue 1 F2)")
         self.equation = equation
         self.precision = precision or PrecisionPolicy()
         self.center_z = (
@@ -71,6 +68,9 @@ class _PicardBase:
         self.device = resolve_device(device)
         self.gen = torch.Generator(device=self.device).manual_seed(int(seed))
         self.batch_chunk = batch_chunk
+        # Debug mode: every op of the rollout is checked for NaN, so a NaN
+        # raises at the op that made it (utils/debug.py).
+        self.debug_checks = debug_checks
         self._cache: Dict[Tuple, Callable] = {}
 
     def _params(self):
@@ -99,7 +99,10 @@ class _PicardBase:
     def _get_fn(self, schedule_key: Tuple) -> Callable:
         fn = self._cache.get(schedule_key)
         if fn is None:
-            fn = self._cache[schedule_key] = self._build(schedule_key)
+            fn = self._build(schedule_key)
+            if self.debug_checks:
+                fn = float_checked(fn)
+            self._cache[schedule_key] = fn
         return fn
 
     def _run(self, schedule_key: Tuple, x_t) -> torch.Tensor:

@@ -249,3 +249,49 @@ def test_rbf_terminal_fit_matches_float64():
     e32 = rel(gp.predict(x_test))
     e64 = rel(gp.posterior_u(st64, x_test).u)
     assert abs(e32 - e64) < 0.1 * e64, (e32, e64)
+
+
+@pytest.mark.cuda
+def test_kernel_checks_its_outputs_under_float_checks(problem):
+    """The debug NaN checks cannot see inside the kernel: under FloatChecks
+    the wrapper launches it once, returns the same bits, and raises naming
+    itself where an output holds a NaN."""
+    from scasml_gp_torch.utils.debug import FloatCheckError, FloatChecks
+
+    x, x_dom, x_bdy, r = problem
+    fused = fp.prepare_inputs(x_dom, x_bdy, r, GAMMAS[0], D)
+    want = fp.fused_posterior(x, fused, True, True)
+    before = fp.launches
+    with FloatChecks():
+        got = fp.fused_posterior(x, fused, True, True)
+    assert fp.launches == before + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    bad = fp.prepare_inputs(x_dom, x_bdy, torch.full_like(r, float("nan")), GAMMAS[0], D)
+    with pytest.raises(FloatCheckError, match="fused_posterior"):
+        with FloatChecks():
+            fp.fused_posterior(x, bad)
+
+
+@pytest.mark.cuda
+def test_distributed_trainer_on_the_card_matches_the_cpu():
+    """The dual-CG trainer's GEMVs on the card against the same train on
+    the CPU: the same fixed point to float32 round-off."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import scasml_gp_torch as port
+    from scasml_gp_torch.gp.distributed import distributed_gpsolver
+
+    eq = port.GradDependentNonlinear(n_input=D + 1)
+    x_dom, x_bdy = eq.generate_data(200, 40, torch.Generator().manual_seed(0))
+    x_eval = eq.geometry().sample_domain(torch.Generator().manual_seed(1), 300)
+    preds, outs = {}, {}
+    for dev in ("cpu", "cuda"):
+        gp = port.GPGradDependentNonlinear(eq, port.GPConfig(), device=dev)
+        outs[dev] = distributed_gpsolver(gp, x_dom, x_bdy, gn_steps=8)
+        preds[dev] = gp.predict(x_eval).cpu()
+    assert float(outs["cuda"].final_residual) < 1e-3
+    torch.testing.assert_close(outs["cuda"].loss_history.cpu(), outs["cpu"].loss_history,
+                               rtol=1e-3, atol=0)
+    rel = float((preds["cuda"] - preds["cpu"]).norm() / preds["cpu"].norm())
+    assert rel < 1e-3, rel

@@ -271,8 +271,8 @@ def test_unported_options_raise(carried):
     with pytest.raises(NotImplementedError):
         port.ScaSMLFullHistory(eq, gp, mesh=object())
     with pytest.raises(NotImplementedError):
-        port.MLPFullHistory(eq, debug_checks=True, device="cpu")
-    with pytest.raises(NotImplementedError):
         port.MLPFullHistory(eq, terminal_crn=True, device="cpu")
-    # the JAX kwargs at their defaults are accepted
+    # the JAX kwargs at their defaults are accepted, and debug_checks, once
+    # unported, is on (tests/test_torch_debug_checks.py)
     port.MLPFullHistory(eq, mesh=None, debug_checks=False, device="cpu")
+    assert port.MLPFullHistory(eq, debug_checks=True, device="cpu").debug_checks

@@ -97,20 +97,23 @@ def test_gradient_and_residual_match_jax(trained):
 
 
 def test_unported_train_paths_raise():
+    """The parity modes and the bf16 Gram raise; the distributed trainer,
+    once among them, is ported (tests/test_torch_distributed.py) and takes
+    over past dense_phi_max; an untrained GP refuses to predict."""
     eq = port.GradDependentNonlinear(n_input=D + 1)
     x = torch.zeros((3, D + 1))
     with pytest.raises(NotImplementedError):
         port.GPGradDependentNonlinear(eq, port.GPConfig(laplacian="subset"), device="cpu")
     with pytest.raises(NotImplementedError):
         port.GPGradDependentNonlinear(eq, port.GPConfig(parity_fp16=True), device="cpu")
-    gp = port.GPGradDependentNonlinear(eq, port.GPConfig(train_backend="distributed"), device="cpu")
     with pytest.raises(NotImplementedError):
-        gp.GPsolver(x, x)
+        port.GPGradDependentNonlinear(eq, precision=port.PrecisionPolicy(gram="bfloat16"),
+                                      device="cpu")
     gp = port.GPGradDependentNonlinear(eq, port.GPConfig(dense_phi_max=8), device="cpu")
-    with pytest.raises(NotImplementedError):
-        gp.GPsolver(x, x)
     with pytest.raises(RuntimeError):
         gp.predict(x)
+    gp.GPsolver(*eq.generate_data(20, 6, torch.Generator().manual_seed(0)))
+    assert gp.state.loss_history.shape == (gp.config.dist_gn_steps + 1,)
 
 
 def test_closed_forms_match_jax():

@@ -152,12 +152,11 @@ def _small_argv(tmp_path, *extra, device="cpu"):
 
 
 # ids kept from when the first four cases (now in
-# test_sweeps_and_fit_ml_run_through_main) raised too
+# test_sweeps_and_fit_ml_run_through_main) and extra6, extra7 (now in
+# tests/test_torch_debug_checks.py) raised too
 @pytest.mark.parametrize("extra", [
     pytest.param(["--mesh-data", "2"], id="extra4"),
     pytest.param(["--mesh-model", "4"], id="extra5"),
-    pytest.param(["--debug-checks", "--no-tune"], id="extra6"),
-    pytest.param(["--train-backend", "distributed"], id="extra7"),
     pytest.param(["--bf16"], id="extra8"),
 ])
 def test_unported_flags_raise(tmp_path, extra):

@@ -10,7 +10,9 @@ import sys
 import pytest
 
 MODULES = ("scasml_gp_torch", "scasml_gp_torch.harness.runner",
-           "scasml_gp_torch.gp.tuning", "scasml_gp_torch.gp.marginal", "*")
+           "scasml_gp_torch.gp.tuning", "scasml_gp_torch.gp.marginal",
+           "scasml_gp_torch.gp.distributed", "scasml_gp_torch.serve",
+           "scasml_gp_torch.utils.debug", "*")
 
 
 @pytest.mark.parametrize("module", MODULES)

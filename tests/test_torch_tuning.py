@@ -144,8 +144,9 @@ def test_validation_score_matches_jax(points):
 
 def test_judge_scores_and_unported_backend(points):
     """Any judge_score other than 'cross' is 'energy' (the JAX package's
-    behaviour, kept); 'cross' gives finite positive scores; the distributed
-    trainer raises."""
+    behaviour, kept); 'cross' gives finite positive scores; an unknown
+    train_backend raises (the distributed one, once unported, is held
+    against the JAX package in tests/test_torch_distributed.py)."""
     _, x_dom, x_bdy = points
     eq = port.GradDependentNonlinear(n_input=D + 1)
     args = (port.GPGradDependentNonlinear, eq, torch.from_numpy(x_dom[:60]),
@@ -157,8 +158,8 @@ def test_judge_scores_and_unported_backend(points):
     assert [s for _, s in other.table] == [s for _, s in energy.table]
     cross = tune_gp(*args, judge_score="cross", **kw)
     assert all(np.isfinite(s) and s > 0 for _, s in cross.table)
-    with pytest.raises(NotImplementedError):
-        tune_gp(*args, train_backend="distributed", **kw)
+    with pytest.raises(ValueError, match="train_backend"):
+        tune_gp(*args, train_backend="sharded", **kw)
 
 
 def test_judge_uses_common_random_numbers(points):
