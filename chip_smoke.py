@@ -82,12 +82,37 @@ Phases, each printing its own lines:
               bitwise equal to the unchecked one under the same seed, a NaN
               input row raising the port's error naming an aten op, and the
               slowdown.
+  12. mesh:   (a) a world of one process over NCCL with a 1 x 1 mesh:
+              parallel.make_sharded_train_and_solve on the bench workload
+              (quadrature ScaSML (2, 2), 20 Newton steps) bitwise equal to
+              the unsharded train, rollout and u_hat; (b) two processes on
+              cuda:0 over gloo (NCCL refuses two ranks on one card): phase
+              10's tuned surrogate, ScaSMLFullHistory u_solve(2, 2, M=3) on
+              1200 points on a 2 x 1 mesh (the batch split; rtol 1e-4,
+              atol 1e-5 against world 1) and on a 1 x 2 mesh (the training
+              rows split; rtol 2e-3, atol 2e-4), and one dense train with
+              the Gram's rows split, each rank's kernel launches.
+  13. bf16:   the bf16-operand kernel variant against posterior_block with
+              bf16 operands, all four specialisations, at the bench GP's
+              and at phase 5's full-history shapes with trained weights, at
+              2e-4, two launches bitwise equal; its distance from the
+              float32 kernel; the flagless full-history runner with --bf16
+              (into results/smoke_bf16/) against phase 5's float32 run
+              (|GP_bf16 - GP_fp32| < 0.25 GP_fp32, SCaSML < GP), its bf16
+              kernel launches.
+  14. parity: laplacian='subset' with and without parity_fp16 on the bench
+              points (the biased Gram, the fp64 eigh on the card, Newton):
+              times, GP and quadrature ScaSML (2, 2) rel-L2; terminal_crn
+              ScaSML and MLP, and MLP with terminal_crn, reference_semantics
+              and float16 paths, on 1200 points, beside the JAX package's
+              figures in reports/quadrature_parity.json.
 Kernel times are CUDA-event times of calls back to back as a caller sees
 them (``ms`` and ``plain_ms``, the host's launch cost included, as in every
 earlier version of this script) and with the stream held until every call is
 enqueued (``device_ms``, the device's time alone).  Each kernel record gives
 the bound (``scasml_gp_torch.measure.bound``: the call's float32 operations
-in the norm form over the 67 TFLOP/s peak, or its bytes over 3.35 TB/s,
+in the norm form over the 67 TFLOP/s peak, with the bf16 variant's x.y
+product over the 989 TFLOP/s bf16 peak, or its bytes over 3.35 TB/s,
 whichever is larger) and the kernel's share of it, ``bound_ms /
 device_ms``; no single PyTorch call computes the posterior, so
 ``library_ms`` is null.
@@ -187,9 +212,10 @@ def by_flags_str(d):
 
 def compare_kernel(x, fused, x_dom, x_bdy, r, gamma, d, flags, what,
                    repeat=False):
-    """Launch the kernel and its plain version on x; raise on any element
-    outside rtol = atol = 2e-4 (and with ``repeat`` unless a second launch
-    gives the same bits); return the max abs error of each output."""
+    """Launch the kernel and its plain version (with the operand dtype of
+    ``fused``) on x; raise on any element outside rtol = atol = 2e-4 (and
+    with ``repeat`` unless a second launch gives the same bits); return the
+    max abs error of each output."""
     import torch
 
     from scasml_gp_torch.gp import fused_posterior as fp
@@ -197,7 +223,8 @@ def compare_kernel(x, fused, x_dom, x_bdy, r, gamma, d, flags, what,
 
     got = fp.fused_posterior(x, fused, *flags)
     again = fp.fused_posterior(x, fused, *flags) if repeat else got
-    ref = posterior_block(x, x_dom, x_bdy, r, gamma, d, *flags)
+    ref = posterior_block(x, x_dom, x_bdy, r, gamma, d, *flags,
+                          operand_dtype=fused.operand_dtype)
     torch.cuda.synchronize()
     worst = {}
     for name, a, a2, b in zip(ref._fields, got, again, ref):
@@ -226,8 +253,11 @@ def kernel_record(x, fused, flags, plain, errs):
     def kernel():
         return fp.fused_posterior(x, fused, *flags)
 
+    import torch
+
     device_ms = event_ms(kernel, device_bound=True)
-    b_ms, b_by = bound(x.shape[0], fused.y.shape[0], fused.dim + 1, *flags)
+    b_ms, b_by = bound(x.shape[0], fused.y.shape[0], fused.dim + 1, *flags,
+                       bf16=fused.operand_dtype == torch.bfloat16)
     return {"rows": x.shape[0], "F": fused.dim + 1,
             "splits": fp.launch_plan(x, fused, *flags).splits,
             "max_abs_err": max(errs.values()), "max_abs_err_by_output": errs,
@@ -1196,6 +1226,309 @@ def debug_phase(dev, smi, gp):
     return launches[True]
 
 
+# Phase 12.  The data axis is held to world 1 at the JAX package's sharding
+# bar (tests/test_sharding.py: the same numbers, gathered), the model axis
+# at its precision bar (tests/test_precision.py:119: partial sums over the
+# training rows added in another order).
+MESH_SEED = 11
+MESH_DATA = dict(rtol=1e-4, atol=1e-5)
+MESH_MODEL = dict(rtol=2e-3, atol=2e-4)
+MESH_CHILD_TIMEOUT_S = 300
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def mesh_phase(dev, smi, gp, x_dom, x_bdy, x_test):
+    """Phase 12: (a) make_sharded_train_and_solve on a 1 x 1 mesh of a
+    one-process NCCL world against the unsharded path, bitwise; (b) two gloo
+    processes on this card at 2 x 1 and 1 x 2 against world 1.  Returns the
+    kernel launches of (a) and of each rank of (b)."""
+    import torch
+    import torch.distributed as dist
+
+    from scasml_gp_torch.gp import fused_posterior as fp
+    from scasml_gp_torch.parallel import make_mesh, make_sharded_train_and_solve
+    from scasml_gp_torch.picard.core import build_quadrature_uz
+    from scasml_gp_torch.picard.scasml import ScaSML
+    from scasml_gp_torch.picard.schedule import approx_parameters
+
+    eq = gp.equation
+    sca = ScaSML(eq, gp)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh(1, 1)
+        check(dist.get_backend() == "nccl" and mesh.shape == {"data": 1, "model": 1},
+              f"world {dist.get_backend()} x {dist.get_world_size()}, mesh {mesh.shape}")
+        step = make_sharded_train_and_solve(eq, gp, sca, mesh, n=2, rho=2, gn_steps=20)
+        torch.cuda.synchronize()
+        fp.reset_launches()
+        t0 = time.perf_counter()
+        u = step(x_dom, x_bdy, x_test, torch.Generator(device=dev).manual_seed(MESH_SEED))
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        launches = dict(fp.launches_by_flags)
+    finally:
+        dist.destroy_process_group()
+    gp.GPsolver(x_dom, x_bdy)
+    uz = build_quadrature_uz(sca._model(), 2, 2, approx_parameters(2, eq.T))(
+        x_test, torch.Generator(device=dev).manual_seed(MESH_SEED), gp.state)
+    u_ref = gp.predict(x_test) + uz[:, :1]
+    check(torch.equal(u, u_ref), "the 1 x 1 sharded step differs from the unsharded path: "
+          f"max {float((u - u_ref).abs().max()):.3g}")
+    e = rel_l2(u, eq.exact_solution(x_test))
+    print(f"[mesh] {smi}; (a) NCCL world of 1, 1 x 1 mesh: make_sharded_train_and_solve "
+          f"(20 Newton steps, quadrature ScaSML (2, 2), {x_test.shape[0]} points) in "
+          f"{step_s:.3f} s (host clock, first call), bitwise equal to the unsharded path; "
+          f"rel-L2 {e:.6f}; kernel launches {by_flags_str(launches)}", flush=True)
+    check(launches == EXPECTED_LAUNCHES, f"the step's launches {launches}")
+
+    port = free_port()
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--mesh-child",
+                               str(rank), str(port)], cwd=here, text=True,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+             for rank in (0, 1)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=MESH_CHILD_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    results = []
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        lines = [ln for ln in out.splitlines() if ln.startswith("MESHRESULT ")]
+        check(p.returncode == 0 and lines, f"mesh rank {rank} failed:\n{out[-4000:]}")
+        results.append(json.loads(lines[-1][len("MESHRESULT "):]))
+    for r in results:
+        print(f"[mesh] {smi}; (b) gloo rank {r['rank']} of 2 on cuda:0: ScaSMLFullHistory "
+              f"u_solve(2, 2, M=3) on {r['rows']} points: world 1 {r['solve_ms']['1x1']:.3f} ms, "
+              f"2 x 1 {r['solve_ms']['2x1']:.3f} ms (max abs diff {r['diff']['2x1']:.3g}), "
+              f"1 x 2 {r['solve_ms']['1x2']:.3f} ms (max abs diff {r['diff']['1x2']:.3g}); "
+              f"dense train world 1 {r['train_s']['1x1']:.3f} s, 1 x 2 {r['train_s']['1x2']:.3f} s "
+              f"(weights bitwise equal: {r['train_bitwise']}; prediction max abs diff "
+              f"{r['diff']['train']:.3g}); host clock, "
+              "synchronized, two ranks sharing one card", flush=True)
+        print(f"[mesh] rank {r['rank']} kernel launches: " + ", ".join(
+            f"{k} {v}" for k, v in r["launches"].items()), flush=True)
+        for k in ("2x1", "1x2"):
+            check(r["launches"][k] and all(v for v in r["launches"][k].values()),
+                  f"rank {r['rank']} launched no kernel at {k}")
+    check(all(r["train_bitwise"] for r in results),
+          "the 1 x 2 dense train's weights differ from world 1's")
+    check(results[0]["checksum"] == results[1]["checksum"],
+          f"the ranks' solves differ: {[r['checksum'] for r in results]}")
+    return {"a": launches, "b": [r["launches"] for r in results]}
+
+
+def mesh_child(rank, port):
+    """One of phase 12b's two ranks on cuda:0 (gloo); prints MESHRESULT."""
+    import torch
+    import torch.distributed as dist
+
+    import scasml_gp_torch as port_pkg
+    from scasml_gp_torch.gp import fused_posterior as fp
+    from scasml_gp_torch.parallel import initialize_distributed, make_mesh
+    from scasml_gp_torch.picard.scasml import ScaSMLFullHistory
+    from scasml_gp_torch.serve import load_surrogate
+
+    dev = torch.device("cuda", 0)
+    initialize_distributed(f"localhost:{port}", 2, rank, backend="gloo")
+    try:
+        gp = load_surrogate(SERVE_DIR, device=dev)
+        eq = gp.equation
+        x = torch.cat(eq.generate_test_data(
+            N_TEST_DOM, N_TEST_BDY, torch.Generator(device=dev).manual_seed(13), device=dev))
+        mesh_d, mesh_m = make_mesh(2, 1), make_mesh(1, 2)
+        gp_m = load_surrogate(SERVE_DIR, device=dev, mesh=mesh_m)
+        res = {"rank": rank, "rows": x.shape[0], "solve_ms": {}, "launches": {}, "diff": {},
+               "train_s": {}}
+        us = {}
+        for key, g, mesh in (("1x1", gp, None), ("2x1", gp, mesh_d), ("1x2", gp_m, mesh_m)):
+            sca = ScaSMLFullHistory(eq, g, seed=MESH_SEED, mesh=mesh)
+            sca.u_solve(2, 2, x, M=3)  # warm-up
+            sca.gen.manual_seed(MESH_SEED)
+            torch.cuda.synchronize()
+            fp.reset_launches()
+            t0 = time.perf_counter()
+            us[key] = sca.u_solve(2, 2, x, M=3)
+            torch.cuda.synchronize()
+            res["solve_ms"][key] = 1e3 * (time.perf_counter() - t0)
+            res["launches"][key] = by_flags_str(fp.launches_by_flags)
+        for key, tol in (("2x1", MESH_DATA), ("1x2", MESH_MODEL)):
+            torch.testing.assert_close(us[key], us["1x1"], **tol)
+            res["diff"][key] = float((us[key] - us["1x1"]).abs().max())
+        x_dom, x_bdy = eq.generate_data(N_DOM, N_BDY,
+                                        torch.Generator(device=dev).manual_seed(1234),
+                                        device=dev)
+        preds, weights = {}, {}
+        for key, mesh in (("1x1", None), ("1x2", mesh_m)):
+            g = port_pkg.GPGradDependentNonlinear(eq, gp.config, device=dev, mesh=mesh)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            g.GPsolver(x_dom, x_bdy)
+            torch.cuda.synchronize()
+            res["train_s"][key] = time.perf_counter() - t0
+            preds[key], weights[key] = g.predict(x), g.state.right_vector
+        # the gathered Gram is gram_matrix's bit for bit, so is the train
+        res["train_bitwise"] = bool(torch.equal(weights["1x2"], weights["1x1"]))
+        torch.testing.assert_close(preds["1x2"], preds["1x1"], **MESH_MODEL)
+        res["diff"]["train"] = float((preds["1x2"] - preds["1x1"]).abs().max())
+        res["checksum"] = float(us["2x1"].double().sum())
+        print("MESHRESULT " + json.dumps(res), flush=True)
+    except Exception:
+        import traceback
+
+        traceback.print_exc()
+        sys.stdout.flush()
+        os._exit(1)  # the other rank may wait in a collective
+    dist.destroy_process_group()
+
+
+# Phase 13.
+BF16_DIR = "results/smoke_bf16"
+
+
+def bf16_phase(dev, smi, bench, tuned_state):
+    """Phase 13: the bf16-operand kernel variant against its plain version
+    at the bench GP's and at phase 5's full-history shapes, its distance
+    from the float32 kernel, and the flagless full-history runner with
+    --bf16 against phase 5's float32 run.  Returns the kernel records."""
+    import torch
+
+    from scasml_gp_torch.gp import fused_posterior as fp
+    from scasml_gp_torch.gp.posterior import posterior_block
+    from scasml_gp_torch.harness import runner
+
+    bf16 = torch.bfloat16
+    eq_x_dom, eq_x_bdy, r, gamma, geom = bench
+    cases = {
+        "bench": (eq_x_dom, eq_x_bdy, r, gamma,
+                  {f: n for f, (_, n) in MAIN_SPECS.items()} | {(True, True): 1200}),
+        "full_history": (tuned_state.x_dom, tuned_state.x_bdy, tuned_state.right_vector,
+                         tuned_state.gamma,
+                         {f: n for f, (_, n) in FH_SPECS.items()} | {(True, True): 3600}),
+    }
+    gen = torch.Generator(device=dev).manual_seed(21)
+    records = {}
+    for where, (xd, xb, rv, gm, rows) in cases.items():
+        f16 = fp.prepare_inputs(xd, xb, rv, gm, D, operand_dtype=bf16)
+        f32 = fp.prepare_inputs(xd, xb, rv, gm, D)
+        for flags, n in rows.items():
+            x = geom.sample_domain(gen, n, device=dev)
+            errs = compare_kernel(x, f16, xd, xb, rv, gm, D, flags,
+                                  f"bf16 {where} n={n}", repeat=True)
+            rec = kernel_record(x, f16, flags, lambda: posterior_block(
+                x, xd, xb, rv, gm, D, *flags, operand_dtype=bf16), errs)
+            a, b = fp.fused_posterior(x, f16, *flags), fp.fused_posterior(x, f32, *flags)
+            rec["vs_float32"] = {
+                name: {"max_abs": float((u - v).abs().max()),
+                       "rel_l2": float((u - v).norm() / v.norm())}
+                for name, u, v in zip(a._fields, a, b) if v is not None}
+            records[where, flags] = rec
+            print(f"[bf16] {smi}; {where} (want_grad={flags[0]:d}, want_ops={flags[1]:d}) "
+                  f"n={n}: {describe(rec)}; against the float32 kernel: " + ", ".join(
+                      f"{k} rel {v['rel_l2']:.3g} (max {v['max_abs']:.3g})"
+                      for k, v in rec["vs_float32"].items()), flush=True)
+
+    with open(os.path.join(RUN_DIR, "GradDependentNonlinear", f"{D}d", "full_history",
+                           "SimpleUniform", "metrics.json")) as fh:
+        rel32 = {k: v["rel_L2"] for k, v in json.load(fh)["metrics"].items()}
+    torch.cuda.synchronize()
+    fp.reset_launches()
+    t0 = time.perf_counter()
+    out = runner.main(["--dim", str(D), "--variant", "full_history", "--harness",
+                       "SimpleUniform", "--save-path", BF16_DIR, "--device", "cuda",
+                       "--no-plots", "--bf16"])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches16, launches32 = dict(fp.bf16_launches_by_flags), dict(fp.launches_by_flags)
+    rel16 = {k: v["rel_L2"] for k, v in out["metrics"].items()}
+    print(f"[bf16] {smi}; runner --bf16 (flagless: the float32 tune, then the run with "
+          f"the bf16 policy) in {run_s:.3f} s; rel-L2 bf16 / float32 (phase 5): " + ", ".join(
+              f"{k} {rel16[k]:.6f} / {rel32[k]:.6f}" for k in SOLVERS), flush=True)
+    print(f"[bf16] kernel launches: bf16 variant {by_flags_str(launches16)} (the run), "
+          f"float32 {by_flags_str(launches32)} (the tune)", flush=True)
+    check(abs(rel16["GP"] - rel32["GP"]) < 0.25 * rel32["GP"],
+          f"bf16 GP {rel16['GP']} against float32 {rel32['GP']}")
+    check(rel16["SCaSML"] < rel16["GP"], f"bf16 SCaSML {rel16['SCaSML']} not below GP")
+    for flags in MAIN_SPECS:
+        check(launches16.get(flags, 0) > 0, f"the bf16 run never launched the bf16 kernel {flags}")
+    for (where, flags), rec in records.items():
+        rec["launches"] = launches16.get(flags, 0) if where == "bench" else None
+    return records
+
+
+def parity_phase(dev, smi, gp_exact, x_dom, x_bdy, x_test):
+    """Phase 14: the parity modes on the bench points and the Monte-Carlo
+    parity probes on 1200 points."""
+    import torch
+
+    import scasml_gp_torch as port
+    from scasml_gp_torch.gp import fused_posterior as fp
+    from scasml_gp_torch.gp.parity import parity_factorization, parity_gram_matrix
+
+    eq = gp_exact.equation
+    exact = eq.exact_solution(x_test)
+    for fp16 in (False, True):
+        gp = port.GPGradDependentNonlinear(
+            eq, port.GPConfig(gn_steps=20, laplacian="subset", parity_fp16=fp16), device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        K = parity_gram_matrix(x_dom, x_bdy, gp.gamma[0], gp._subset, D, fp16)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        _, C = parity_factorization(K, gp.nugget, fp16)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        check(bool(torch.isfinite(C).all()), "parity factorization not finite")
+        gp.GPsolver(x_dom, x_bdy)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t2
+        e_gp = rel_l2(gp.predict(x_test), exact)
+        sca = port.ScaSML(eq, gp, seed=7)
+        fp.reset_launches()
+        u = sca.u_solve(2, 2, x_test)
+        torch.cuda.synchronize()
+        check(fp.launches == 0, "the parity posterior launched the fused kernel")
+        e_sca = rel_l2(u, exact)
+        print(f"[parity] {smi}; laplacian='subset' (subset {gp._subset}), parity_fp16="
+              f"{fp16}: biased Gram ({K.shape[0]}^2) {t1 - t0:.3f} s, fp64 eigh "
+              f"pseudo-Cholesky on the card {t2 - t1:.3f} s, GPsolver (20 Newton steps) "
+              f"{train_s:.3f} s (host clock, synchronized); GP rel-L2 {e_gp:.6f}, "
+              f"quadrature ScaSML (2, 2) {e_sca:.6f}", flush=True)
+        check(math.isfinite(e_gp) and e_gp < 0.5 and e_sca < e_gp,
+              f"parity fp16={fp16}: GP {e_gp}, ScaSML {e_sca}")
+    with open("reports/quadrature_parity.json") as fh:
+        jax_q = {v["variant"]: v for v in json.load(fh)["variants"]}
+    probes = {
+        "ScaSML terminal_crn": port.ScaSML(eq, gp_exact, seed=7, terminal_crn=True),
+        "MLP terminal_crn": port.MLP(eq, device=dev, seed=7, terminal_crn=True),
+        "MLP terminal_crn + reference_semantics + float16 paths": port.MLP(
+            eq, device=dev, seed=7, terminal_crn=True, reference_semantics=True,
+            precision=port.PrecisionPolicy(rollout="float16")),
+    }
+    jax_of = {"MLP terminal_crn": "crn",
+              "MLP terminal_crn + reference_semantics + float16 paths": "combined_faithful"}
+    for name, solver in probes.items():
+        e = rel_l2(solver.u_solve(2, 2, x_test), exact)
+        j = jax_q.get(jax_of.get(name))
+        ref = (f"; the JAX package's {j['reps']}-rep mean {j['mean']:.4f} (std "
+               f"{j['std']:.4f})" if j else "")
+        print(f"[parity] {smi}; {name}, quadrature (2, 2) on {x_test.shape[0]} points: "
+              f"rel-L2 {e:.6f}{ref}", flush=True)
+        check(math.isfinite(e) and e < 0.5, f"{name}: rel-L2 {e}")
+
+
 def main():
     import torch
 
@@ -1233,11 +1566,12 @@ def main():
     # ptxas -v per kernel: registers and spills of each specialisation
     kernel, spills, spill_bytes = None, 0, "?"
     for line in build.build_log.splitlines():
-        m = re.search(r"fused_posterior_(kernel|reduce)(?:ILb(\d)ELb(\d)ELi(\d+)E)?", line)
+        m = re.search(r"fused_posterior_(kernel|reduce)"
+                      r"(?:ILb(\d)ELb(\d)ELi(\d+)ELb(\d)E)?", line)
         if "Compiling entry function" in line and m:
             kernel = (f"fused_posterior_{m.group(1)}" + (
-                f"<grad={m.group(2)}, ops={m.group(3)}, NC={m.group(4)}>"
-                if m.group(2) else ""))
+                f"<grad={m.group(2)}, ops={m.group(3)}, NC={m.group(4)}, "
+                f"bf16={m.group(5)}>" if m.group(2) else ""))
         m = re.search(r"(\d+) bytes spill stores", line)
         if m:
             spills += int(m.group(1)) > 0
@@ -1359,6 +1693,15 @@ def main():
     # 11. --debug-checks
     debug_launches = debug_phase(dev, smi, tuned_gp)
 
+    # 12. the mesh: a one-process NCCL world, then two gloo ranks on this card
+    mesh_launches = mesh_phase(dev, smi, gp, x_dom, x_bdy, x_test)
+
+    # 13. the bf16-operand kernel variant and runner --bf16
+    bf16 = bf16_phase(dev, smi, (x_dom, x_bdy, r, gamma, geom), tuned_gp.state)
+
+    # 14. the parity modes and probes
+    parity_phase(dev, smi, gp, x_dom, x_bdy, x_test)
+
     kernels = []
     for f, (caller, _) in MAIN_SPECS.items():
         rec = {
@@ -1377,10 +1720,27 @@ def main():
             "large_n": large_n[f],
             "serve": {"launches": serve_launches.get(f, 0)},
             "debug_checks": {"launches": debug_launches.get(f, 0)},
+            "mesh": {"launches_1x1_step": mesh_launches["a"].get(f, 0),
+                     "launches_by_rank": [r[k].get(f"{f[0]:d}{f[1]:d}", 0)
+                                          for r in mesh_launches["b"] for k in r]},
         }
         if f == (True, False):  # the gradient kernel with the operators on too
             rec["sine_d100_with_ops"] = extra[(True, True)]
         kernels.append(rec)
+    for f, (caller, _) in MAIN_SPECS.items():
+        b = bf16["bench", f]
+        kernels.append({
+            "name": f"fused_posterior_bf16[{caller}: want_grad={f[0]:d} want_ops={f[1]:d}]",
+            "route": "cuda",
+            "source": "scasml_gp_torch/csrc/fused_posterior.cu",
+            "replaces": REPLACES,
+            **{k: b[k] for k in ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                 "bound_by", "share_of_bound", "library_ms", "device_ms",
+                                 "rows", "splits", "vs_float32")},
+            "full_history": bf16["full_history", f],
+        })
+    kernels[-2]["with_ops"] = {"bench": bf16["bench", (True, True)],
+                               "full_history": bf16["full_history", (True, True)]}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
@@ -1391,4 +1751,7 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    if len(sys.argv) == 4 and sys.argv[1] == "--mesh-child":
+        mesh_child(int(sys.argv[2]), int(sys.argv[3]))
+    else:
+        sys.exit(main())

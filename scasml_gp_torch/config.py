@@ -2,10 +2,8 @@
 
 Same fields and defaults as the JAX package's ``scasml_gp_tpu/config.py``
 (``PrecisionPolicy``, ``GPConfig``, ``PicardConfig``, ``MeshConfig``,
-``RunConfig``), with dtype properties returning torch dtypes.  Options the
-port does not run yet are kept as fields so a config written for the JAX
-package loads unchanged (``RunConfig.from_json``); the modules that would
-read them raise ``NotImplementedError`` for any non-default value.
+``RunConfig``), with dtype properties returning torch dtypes, so a config
+written for the JAX package loads unchanged (``RunConfig.from_json``).
 """
 
 from __future__ import annotations
@@ -63,9 +61,11 @@ class GPConfig:
     damping: float = 1e-4
     grad_tol: float = 1e-5
     init_scale: float = 1e-3
-    laplacian: str = "exact"        # 'subset' (parity mode) is not ported
+    # 'subset': the reference's frozen-subset Hutchinson Laplacian (parity
+    # mode, gp/parity.py); needs the isotropic kernel
+    laplacian: str = "exact"
     laplacian_subset_size: int = 5
-    parity_fp16: bool = False       # parity mode, not ported
+    parity_fp16: bool = False       # the reference's fp16 quantization points
     # Rows per posterior block on the plain (CPU) path; None means 4096.
     # The CUDA kernel bounds its own working set and ignores it.
     eval_chunk: Optional[int] = None
@@ -93,7 +93,8 @@ class PicardConfig:
 
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
-    """Device-mesh layout ('data' x 'model'); only 1 x 1 is ported."""
+    """Device-mesh layout ('data' x 'model' ranks, parallel/mesh.py); larger
+    than 1 x 1 runs one process per rank under torchrun."""
 
     data: int = 1
     model: int = 1

@@ -66,7 +66,22 @@
 //     above 48 KB is requested with cudaFuncSetAttribute; at F = 256 the
 //     block takes 226 KB and still keeps full 64-row tiles.
 // All arithmetic is IEEE float32 (expf, no fast-math).
+//
+// The bf16-operand variant (BF16 = true; PrecisionPolicy.gram = 'bfloat16',
+// the JAX package's operand_dtype) computes the pair statistics from x and y
+// rounded to bfloat16 and back, as gp/kernels.py pair_stats does: the
+// prologue rounds the x tile and its stats, the x.y loop rounds each y value
+// as it reads it, and the records |y|^2, spatial sum and time come from the
+// rounded y (prepare_inputs with operand_dtype bfloat16).  A product of two
+// bf16 values is exact in float32, so this is a bf16 product with float32
+// accumulation.  The gradient's x * rowsum - A_sp . Y and A_t . y_t terms
+// keep the unrounded float32 x (read from global memory in the epilogue) and
+// training rows (the y tile), as the JAX posterior does.  y is rounded in
+// the loop rather than staged as a second rounded tile: a second tile does
+// not fit in shared memory at F = 256, and the loop's extra conversions are
+// a few instructions per 16 FMAs.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -95,6 +110,13 @@ __host__ __device__ __forceinline__ size_t smem_bytes(bool grad, int F) {
     const size_t floats = (size_t)F * kLdX + 3 * kBI + kStages * (size_t)stage_floats(F) +
                           (grad ? (size_t)kBI * kLdA : 0);
     return floats * sizeof(float);
+}
+
+// The operand as the bf16 policy sees it: rounded to bfloat16 (nearest
+// even) and back, or unchanged.
+template <bool BF16>
+__device__ __forceinline__ float operand(float v) {
+    return BF16 ? __bfloat162float(__float2bfloat16_rn(v)) : v;
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -130,7 +152,7 @@ __device__ __forceinline__ void load_tile(float* ys, const float* __restrict__ c
 // Blocks per SM the compiler must fit (registers <= 65536 / (256 * it)):
 // two, except where the gradient's accumulators need more than 128
 // registers without spilling (F > 129, or F > 65 with dt/div/lap too).
-template <bool GRAD, bool OPS, int NC>
+template <bool GRAD, bool OPS, int NC, bool BF16>
 __global__ void __launch_bounds__(kThreads, (GRAD && (NC >= 16 || (NC >= 8 && OPS))) ? 1 : 2)
 fused_posterior_kernel(const float* __restrict__ x, const float* __restrict__ cols,
                        int n, int ld, int F, int tiles,
@@ -157,7 +179,7 @@ fused_posterior_kernel(const float* __restrict__ x, const float* __restrict__ co
     const float* xg = x + (size_t)i0 * F;
     for (int idx = tid; idx < kBI * F; idx += kThreads) {
         const int i = idx / F, k = idx - i * F;
-        xs[k * kLdX + i] = idx < lim ? xg[idx] : 0.f;
+        xs[k * kLdX + i] = idx < lim ? operand<BF16>(xg[idx]) : 0.f;
     }
     __syncthreads();
     if (tid < kBI) {
@@ -214,7 +236,8 @@ fused_posterior_kernel(const float* __restrict__ x, const float* __restrict__ co
             const float4 xv = *reinterpret_cast<const float4*>(xs + k * kLdX + ty * 4);
             const float4 yv = *reinterpret_cast<const float4*>(ys + k * kLdY + tx * 4);
             const float xa[4] = {xv.x, xv.y, xv.z, xv.w};
-            const float ya[4] = {yv.x, yv.y, yv.z, yv.w};
+            const float ya[4] = {operand<BF16>(yv.x), operand<BF16>(yv.y),
+                                 operand<BF16>(yv.z), operand<BF16>(yv.w)};
 #pragma unroll
             for (int ii = 0; ii < 4; ++ii)
 #pragma unroll
@@ -232,6 +255,8 @@ fused_posterior_kernel(const float* __restrict__ x, const float* __restrict__ co
             const float r1 = rec[jj], r3 = rec[kLdY + jj], r4 = rec[2 * kLdY + jj];
             const float r5 = rec[3 * kLdY + jj], yn2 = rec[4 * kLdY + jj];
             const float ysum = rec[5 * kLdY + jj], yt = rec[6 * kLdY + jj];
+            // A_t . y_t takes the unrounded time (the tile's row d)
+            const float yt_g = BF16 ? ys[d * kLdY + tx * 4 + jj] : yt;
             // The training row's factors, shared by its four pairs: P_u's
             // dt and s coefficients, and the r3 terms of A_sp, B_s and P_div.
             const float c4 = gt * r4, c5 = G * r5;
@@ -255,7 +280,7 @@ fused_posterior_kernel(const float* __restrict__ x, const float* __restrict__ co
                     const float Bs = fmaf(-gr, kPu, kap * c3r);
                     a_sp[ii] += Asp;
                     a_t[ii] += kPu;                      // times -gt after the loop
-                    a_yt[ii] = fmaf(kPu, yt, a_yt[ii]);  // times -gt after the loop
+                    a_yt[ii] = fmaf(kPu, yt_g, a_yt[ii]);  // times -gt after the loop
                     a_c[ii] += fmaf(Bs, sd, kap * c5);
                     a_e[ii] = fmaf(kap, c4, a_e[ii]);
                     As[(ty * 4 + ii) * kLdA + tx * 4 + jj] = Asp;
@@ -328,6 +353,9 @@ fused_posterior_kernel(const float* __restrict__ x, const float* __restrict__ co
         const int i = ty * 4 + ii;
         const int row = i0 + i;
         if (row >= n) continue;
+        // x of the gradient's x * rowsum terms: unrounded, so from global
+        // memory where the tile holds rounded values
+        const float* const xrow = x + (size_t)row * F;
         if (tx == 0) {
             o[row] = a_u[ii];
             if (OPS) {
@@ -336,14 +364,16 @@ fused_posterior_kernel(const float* __restrict__ x, const float* __restrict__ co
                 ops_out[2 * n + row] = a_lap[ii];
             }
             if (GRAD)
-                grad_out[(size_t)row * F + d] = xs[d * kLdX + i] * a_t[ii] - a_yt[ii] + a_e[ii];
+                grad_out[(size_t)row * F + d] =
+                    (BF16 ? xrow[d] : xs[d * kLdX + i]) * a_t[ii] - a_yt[ii] + a_e[ii];
         }
         if (GRAD) {
 #pragma unroll
             for (int c = 0; c < (NC > 0 ? NC : 1); ++c) {
                 const int k = tx + 16 * c;
                 if (k < d)
-                    grad_out[(size_t)row * F + k] = xs[k * kLdX + i] * a_sp[ii] - ay[ii][c] + a_c[ii];
+                    grad_out[(size_t)row * F + k] =
+                        (BF16 ? xrow[k] : xs[k * kLdX + i]) * a_sp[ii] - ay[ii][c] + a_c[ii];
             }
         }
     }
@@ -368,7 +398,7 @@ int column_chunks(int F) {
 
 constexpr int kMaxDevices = 64;
 
-template <bool GRAD, bool OPS, int NC>
+template <bool GRAD, bool OPS, int NC, bool BF16>
 cudaError_t prepare(size_t smem) {
     // Raise the dynamic shared-memory cap of this specialisation on the
     // current device, once per size the process uses there (the attribute
@@ -378,7 +408,7 @@ cudaError_t prepare(size_t smem) {
     cudaError_t e = cudaGetDevice(&dev);
     if (e != cudaSuccess || smem <= 48 * 1024) return e;
     if (dev < kMaxDevices && smem <= granted[dev]) return cudaSuccess;
-    e = cudaFuncSetAttribute(fused_posterior_kernel<GRAD, OPS, NC>,
+    e = cudaFuncSetAttribute(fused_posterior_kernel<GRAD, OPS, NC, BF16>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e == cudaSuccess && dev < kMaxDevices) granted[dev] = smem;
     return e;
@@ -392,13 +422,13 @@ struct Call {
     cudaStream_t stream;
 };
 
-template <bool GRAD, bool OPS, int NC>
+template <bool GRAD, bool OPS, int NC, bool BF16>
 cudaError_t launch(const Call& c) {
     const size_t smem = smem_bytes(GRAD, c.F);
-    cudaError_t e = prepare<GRAD, OPS, NC>(smem);
+    cudaError_t e = prepare<GRAD, OPS, NC, BF16>(smem);
     if (e != cudaSuccess) return e;
     const dim3 grid((unsigned)((c.n + kBI - 1) / kBI), (unsigned)c.splits);
-    fused_posterior_kernel<GRAD, OPS, NC><<<grid, kThreads, smem, c.stream>>>(
+    fused_posterior_kernel<GRAD, OPS, NC, BF16><<<grid, kThreads, smem, c.stream>>>(
         c.x, c.cols, c.n, c.ld, c.F, c.ld / kBJ, c.gs, c.gt, c.gr,
         c.splits > 1 ? c.scratch : c.out);
     e = cudaGetLastError();
@@ -409,37 +439,50 @@ cudaError_t launch(const Call& c) {
     return cudaGetLastError();
 }
 
-template <bool GRAD, bool OPS, int NC>
+template <bool GRAD, bool OPS, int NC, bool BF16>
 cudaError_t occupancy(int F, int* blocks) {
     const size_t smem = smem_bytes(GRAD, F);
-    const cudaError_t e = prepare<GRAD, OPS, NC>(smem);
+    const cudaError_t e = prepare<GRAD, OPS, NC, BF16>(smem);
     if (e != cudaSuccess) return e;
     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks, fused_posterior_kernel<GRAD, OPS, NC>, kThreads, smem);
+        blocks, fused_posterior_kernel<GRAD, OPS, NC, BF16>, kThreads, smem);
 }
 
 // The one dispatch from runtime flags and F to a specialisation.
-template <template <bool, bool, int> class Op, typename... Args>
-cudaError_t dispatch(bool grad, bool ops, int F, Args&&... args) {
+template <template <bool, bool, int, bool> class Op, bool BF16, typename... Args>
+cudaError_t dispatch_flags(bool grad, bool ops, int F, Args&&... args) {
     if (!grad) {
-        return ops ? Op<false, true, 0>::run(args...) : Op<false, false, 0>::run(args...);
+        return ops ? Op<false, true, 0, BF16>::run(args...)
+                   : Op<false, false, 0, BF16>::run(args...);
     }
     switch (column_chunks(F)) {
-        case 2: return ops ? Op<true, true, 2>::run(args...) : Op<true, false, 2>::run(args...);
-        case 4: return ops ? Op<true, true, 4>::run(args...) : Op<true, false, 4>::run(args...);
-        case 8: return ops ? Op<true, true, 8>::run(args...) : Op<true, false, 8>::run(args...);
-        default: return ops ? Op<true, true, 16>::run(args...) : Op<true, false, 16>::run(args...);
+        case 2: return ops ? Op<true, true, 2, BF16>::run(args...)
+                           : Op<true, false, 2, BF16>::run(args...);
+        case 4: return ops ? Op<true, true, 4, BF16>::run(args...)
+                           : Op<true, false, 4, BF16>::run(args...);
+        case 8: return ops ? Op<true, true, 8, BF16>::run(args...)
+                           : Op<true, false, 8, BF16>::run(args...);
+        default: return ops ? Op<true, true, 16, BF16>::run(args...)
+                            : Op<true, false, 16, BF16>::run(args...);
     }
 }
 
-template <bool GRAD, bool OPS, int NC>
+template <template <bool, bool, int, bool> class Op, typename... Args>
+cudaError_t dispatch(bool grad, bool ops, bool bf16, int F, Args&&... args) {
+    return bf16 ? dispatch_flags<Op, true>(grad, ops, F, args...)
+                : dispatch_flags<Op, false>(grad, ops, F, args...);
+}
+
+template <bool GRAD, bool OPS, int NC, bool BF16>
 struct LaunchOp {
-    static cudaError_t run(const Call& c) { return launch<GRAD, OPS, NC>(c); }
+    static cudaError_t run(const Call& c) { return launch<GRAD, OPS, NC, BF16>(c); }
 };
 
-template <bool GRAD, bool OPS, int NC>
+template <bool GRAD, bool OPS, int NC, bool BF16>
 struct OccupancyOp {
-    static cudaError_t run(int F, int* blocks) { return occupancy<GRAD, OPS, NC>(F, blocks); }
+    static cudaError_t run(int F, int* blocks) {
+        return occupancy<GRAD, OPS, NC, BF16>(F, blocks);
+    }
 };
 
 }  // namespace
@@ -450,19 +493,20 @@ const char* scasml_cuda_error_string(int code) {
     return cudaGetErrorString((cudaError_t)code);
 }
 
-// Blocks of the specialisation for (want_grad, want_ops, F) that fit on one
-// SM of the current device at once; returns a cudaError_t.
-int scasml_fused_posterior_occupancy(int want_grad, int want_ops, int F, int* blocks) {
+// Blocks of the specialisation for (want_grad, want_ops, bf16, F) that fit
+// on one SM of the current device at once; returns a cudaError_t.
+int scasml_fused_posterior_occupancy(int want_grad, int want_ops, int bf16, int F,
+                                     int* blocks) {
     if (F < 2 || F > kMaxFeatures || blocks == nullptr) return (int)cudaErrorInvalidValue;
-    return (int)dispatch<OccupancyOp>(want_grad != 0, want_ops != 0, F, F, blocks);
+    return (int)dispatch<OccupancyOp>(want_grad != 0, want_ops != 0, bf16 != 0, F, F, blocks);
 }
 
 // Launches on `stream` of card `device` and returns cudaGetLastError() of the
-// launches.  ld is the padded training-row count (a multiple of 64) and
-// splits plan()'s S.  out receives [u (n) | grad (n, F) if want_grad | dt,
+// launches.  bf16 selects the bf16-operand variant.  ld is the padded
+// training-row count (a multiple of 64) and splits plan()'s S.  out receives [u (n) | grad (n, F) if want_grad | dt,
 // div, lap (n each) if want_ops]; scratch holds S such slices and may be
 // null when S = 1.
-int scasml_fused_posterior(int device, int want_grad, int want_ops, const float* x,
+int scasml_fused_posterior(int device, int want_grad, int want_ops, int bf16, const float* x,
                            const float* cols, int n, int ld, int F, float gs, float gt,
                            float gr, int splits, float* scratch, float* out, void* stream) {
     const int tiles = ld / kBJ;
@@ -475,7 +519,7 @@ int scasml_fused_posterior(int device, int want_grad, int want_ops, const float*
     if (e == cudaSuccess && prev != device) e = cudaSetDevice(device);
     if (e != cudaSuccess) return (int)e;
     const Call c{x, cols, n, ld, F, splits, gs, gt, gr, scratch, out, (cudaStream_t)stream};
-    e = dispatch<LaunchOp>(want_grad != 0, want_ops != 0, F, c);
+    e = dispatch<LaunchOp>(want_grad != 0, want_ops != 0, bf16 != 0, F, c);
     if (prev != device) cudaSetDevice(prev);
     return (int)e;
 }

@@ -151,8 +151,9 @@ class GPHJBColeHopf(TerminalSemigroupGP):
 
     def __init__(self, equation, config=None, precision=None, device=None,
                  v_floor: float = 1e-4, width: Optional[float] = None,
-                 fit_nugget: float = 1e-4, terminal_backend: str = "auto"):
-        super().__init__(equation, config, precision=precision, device=device)
+                 fit_nugget: float = 1e-4, terminal_backend: str = "auto", mesh=None):
+        super().__init__(equation, config, precision=precision, device=device,
+                         mesh=mesh)
         sig = float(equation.sigma())
         self.k = 2.0 / sig**2
         self.sig2 = sig**2

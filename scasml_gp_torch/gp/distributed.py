@@ -18,8 +18,13 @@ m^T mu.  A last CG on Ktil gives the representer weights of the final
 iterate.  The Jacobi preconditioners come from the closed-form diagonals of
 the self-pair kernel blocks.
 
-K stays whole on the device (4.4 GB in float32 at phi = 33 280); a mesh that
-row-shards it is not ported (ROADMAP Queue 1 F2).
+Without a mesh K stays whole on the device (4.4 GB in float32 at phi =
+33 280).  With a mesh of more than one 'model' rank each rank holds its block
+of K's rows (parallel/mesh.py); a matvec is a local ``torch.mv`` and one
+all-gather of the length-phi result over the 'model' axis.  The gathered
+vector is bitwise the same on every rank, and so is every scalar of the CG
+recurrence, so the ranks take the same stop decisions and issue the same
+collectives.
 """
 
 from __future__ import annotations
@@ -28,7 +33,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from scasml_gp_torch.gp.gram import gram_matrix
+from scasml_gp_torch.gp.gram import gram_matrix, gram_rows
 from scasml_gp_torch.gp.kernels import PairStats, op_block
 from scasml_gp_torch.gp.state import GPState
 
@@ -95,12 +100,17 @@ def phi_diag_constants(gamma, dim: int):
                   ("id", "lap")))
 
 
-def make_distributed_train(form, dim: int, *, gn_steps: int = 8,
+def make_distributed_train(form, dim: int, *, mesh=None, gn_steps: int = 8,
                            cg_tol: float = 1e-7, cg_maxiter: int = 500) -> Callable:
     """``train(x_dom, x_bdy, bdy_g, rhs, gamma, nugget) -> DistTrainOut``:
     ``gn_steps`` Gauss-Newton steps from sol = 0, each one CG on the dual
     system warm-started from the previous step's mu, then one CG on Ktil
-    started from w0 = M^T mu.  The Gram is freed when ``train`` returns."""
+    started from w0 = M^T mu.  The Gram is freed when ``train`` returns.
+    With a ``mesh`` of more than one 'model' rank, K is row-sharded over
+    that axis."""
+    from scasml_gp_torch.parallel.mesh import all_gather_rows, split_range
+
+    sharded = mesh is not None and mesh.model > 1
 
     def train(x_dom, x_bdy, bdy_g, rhs, gamma, nugget) -> DistTrainOut:
         N, Nb = x_dom.shape[0], x_bdy.shape[0]
@@ -108,10 +118,19 @@ def make_distributed_train(form, dim: int, *, gn_steps: int = 8,
         i1, i2, i3, i4 = N, N + Nb, 2 * N + Nb, 3 * N + Nb
         bdy_g = bdy_g.to(torch.float32)
         rhs = rhs.to(torch.float32)
-        K = gram_matrix(x_dom, x_bdy, gamma, dim).contiguous()
+        if sharded:
+            phi = 4 * N + Nb
+            rows = [split_range(phi, mesh.model, i) for i in range(mesh.model)]
+            counts = [hi - lo for lo, hi in rows]
+            K = gram_rows(x_dom, x_bdy, gamma, dim, *rows[mesh.model_index]).contiguous()
 
-        def Kv(v):
-            return torch.mv(K, v) + nugget * v
+            def Kv(v):  # the row block's GEMV, gathered to length phi
+                return all_gather_rows(torch.mv(K, v), mesh.model_group, counts) + nugget * v
+        else:
+            K = gram_matrix(x_dom, x_bdy, gamma, dim).contiguous()
+
+            def Kv(v):
+                return torch.mv(K, v) + nugget * v
 
         def split(sol):
             return sol[:N], sol[N:2 * N], sol[2 * N:]
@@ -172,19 +191,20 @@ def make_distributed_train(form, dim: int, *, gn_steps: int = 8,
     return train
 
 
-def distributed_gpsolver(gp, x_dom, x_bdy, *, gn_steps: int = 8,
+def distributed_gpsolver(gp, x_dom, x_bdy, mesh=None, *, gn_steps: int = 8,
                          cg_tol: float = 1e-7, cg_maxiter: int = 500) -> DistTrainOut:
-    """Train ``gp`` on its device through the dual-CG trainer and install
-    its state (the same GPState contract as ``GP.GPsolver``; the loss
-    history repeats its last entry once).  Returns the trainer's output;
-    the JAX package's also returns K, row-sharded over its mesh."""
+    """Train ``gp`` on its device through the dual-CG trainer, K row-sharded
+    over ``mesh``'s 'model' axis where it has more than one rank, and
+    install its state (the same GPState contract as ``GP.GPsolver``; the
+    loss history repeats its last entry once).  Returns the trainer's
+    output; the JAX package's also returns K, which is freed here."""
     x_dom = torch.as_tensor(x_dom, dtype=torch.float32, device=gp.device)
     x_bdy = torch.as_tensor(x_bdy, dtype=torch.float32, device=gp.device)
     bdy_g = gp.equation.g(x_bdy)[:, 0].to(torch.float32)
     rhs = gp.form.rhs_f(x_dom).to(torch.float32)
     gamma = torch.tensor(gp.gamma, dtype=torch.float32, device=gp.device)
-    train = make_distributed_train(gp.form, gp.d, gn_steps=gn_steps, cg_tol=cg_tol,
-                                   cg_maxiter=cg_maxiter)
+    train = make_distributed_train(gp.form, gp.d, mesh=mesh, gn_steps=gn_steps,
+                                   cg_tol=cg_tol, cg_maxiter=cg_maxiter)
     out = train(x_dom, x_bdy, bdy_g, rhs, gamma, gp.nugget)
     hist = out.loss_history
     if hist.shape[0]:

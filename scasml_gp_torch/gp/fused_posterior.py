@@ -18,6 +18,12 @@ a slice of scratch and a second small kernel adds the slices in split order,
 so the profiler shows two device kernels for such a call; ``launches`` still
 counts one per call.
 
+``prepare_inputs(..., operand_dtype=torch.bfloat16)`` prepares the inputs of
+the bf16-operand variant (the JAX package's ``operand_dtype='bfloat16'``):
+the same columns, with the row stats of the bf16-rounded y; the kernel then
+rounds x and y for the pair statistics and keeps them unrounded for the
+gradient's contractions.
+
 ``fused_posterior`` launches the kernel for CUDA tensors and counts the
 launch in ``launches``.  For CPU tensors it runs ``stacked_posterior``, the
 same stacked computation in plain PyTorch.  There is no fallback between the
@@ -39,9 +45,11 @@ from scasml_gp_torch.gp.posterior import PosteriorOut, _split_r
 from scasml_gp_torch.utils import build, debug
 
 # Kernel launches made by fused_posterior, in total and by (want_grad,
-# want_ops) specialisation; reset with reset_launches.
+# want_ops) specialisation of the float32 and of the bf16-operand variant;
+# reset with reset_launches.
 launches = 0
 launches_by_flags = {}
+bf16_launches_by_flags = {}
 
 # The kernel's tiling (csrc/fused_posterior.cu): BI evaluation rows per
 # block of 256 threads, BJ training rows per tile, two tile stages.
@@ -55,6 +63,7 @@ def reset_launches() -> None:
     global launches
     launches = 0
     launches_by_flags.clear()
+    bf16_launches_by_flags.clear()
 
 
 class FusedInputs(NamedTuple):
@@ -66,9 +75,29 @@ class FusedInputs(NamedTuple):
     cols: torch.Tensor     # (d+1+7, m_pad) [y^T; r^T; y_stats^T], zero past m
     gamma: tuple           # (gs, gt, gr) as Python floats
     dim: int
+    operand_dtype: torch.dtype = torch.float32  # of the pair statistics
 
 
-def prepare_inputs(x_dom, x_bdy, r, gamma, dim: int) -> FusedInputs:
+OPERAND_DTYPES = {None: torch.float32, "float32": torch.float32,
+                  torch.float32: torch.float32, "bfloat16": torch.bfloat16,
+                  torch.bfloat16: torch.bfloat16}
+
+
+def operand_dtype_of(operand_dtype) -> torch.dtype:
+    """torch dtype of a posterior ``operand_dtype`` (PrecisionPolicy.gram):
+    float32 or bfloat16; anything else raises."""
+    try:
+        return OPERAND_DTYPES[operand_dtype]
+    except (KeyError, TypeError):
+        raise ValueError(f"unknown posterior operand dtype {operand_dtype!r}; "
+                         "use 'float32' or 'bfloat16'") from None
+
+
+def prepare_inputs(x_dom, x_bdy, r, gamma, dim: int,
+                   operand_dtype=torch.float32) -> FusedInputs:
+    """The kernel's inputs for a trained state; with ``operand_dtype``
+    bfloat16 the row stats are those of the bf16-rounded rows."""
+    od = operand_dtype_of(operand_dtype)
     n_dom, n_bdy = x_dom.shape[0], x_bdy.shape[0]
     r1, r2, r3, r4, r5 = _split_r(r.to(torch.float32), n_dom, n_bdy)
     r_dom = torch.stack([r1, r3, r4, r5], dim=1)
@@ -76,13 +105,25 @@ def prepare_inputs(x_dom, x_bdy, r, gamma, dim: int) -> FusedInputs:
     r_bdy[:, 0] = r2
     y = torch.cat([x_dom, x_bdy], dim=0).to(torch.float32).contiguous()
     w = torch.cat([r_dom, r_bdy], dim=0).contiguous()
-    stats = row_stats(y)
+    stats = row_stats(y.to(od).to(torch.float32))
     m, F = y.shape
     cols = y.new_zeros((F + RECORD, _cdiv(m, BJ) * BJ))
     cols[:, :m] = torch.cat([y, w, stats], dim=1).T
     return FusedInputs(y=y, r=w, y_stats=stats, cols=cols,
                        gamma=tuple(float(g) for g in split_gamma(gamma)),
-                       dim=int(dim))
+                       dim=int(dim), operand_dtype=od)
+
+
+def shard_inputs(fused: FusedInputs, lo: int, hi: int) -> FusedInputs:
+    """The inputs of the stacked training rows [lo, hi) alone: a 'model'
+    rank's slice (parallel/mesh.py).  Boundary rows keep their (r2, 0, 0, 0)
+    weights wherever the slice falls."""
+    if not 0 <= lo < hi <= fused.y.shape[0]:
+        raise ValueError(f"shard_inputs: rows [{lo}, {hi}) of {fused.y.shape[0]}")
+    y, w, stats = fused.y[lo:hi], fused.r[lo:hi], fused.y_stats[lo:hi]
+    cols = y.new_zeros((y.shape[1] + RECORD, _cdiv(hi - lo, BJ) * BJ))
+    cols[:, :hi - lo] = torch.cat([y, w, stats], dim=1).T
+    return fused._replace(y=y, r=w, y_stats=stats, cols=cols)
 
 
 def stacked_posterior(x, fused: FusedInputs, want_grad: bool,
@@ -95,7 +136,7 @@ def stacked_posterior(x, fused: FusedInputs, want_grad: bool,
     beta = 2.0 * gs * gr + d * gr * gr
     y = fused.y
     r1, r3, r4, r5 = (fused.r[:, i][None, :] for i in range(4))
-    st = pair_stats(x, y, fused.gamma, y_stats=fused.y_stats)
+    st = pair_stats(x, y, fused.gamma, fused.operand_dtype, y_stats=fused.y_stats)
     k, q, s, dt = st.kappa, st.q, st.s, st.dt
     lapf = gs * gs * q + beta * s * s - d * (gs + gr)
     P_u = r1 + lapf * r3 + gt * dt * r4 + G * s * r5
@@ -213,14 +254,14 @@ def _sm_count(index: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _occupancy(index: int, want_grad: bool, want_ops: bool, F: int) -> int:
+def _occupancy(index: int, want_grad: bool, want_ops: bool, bf16: bool, F: int) -> int:
     import ctypes
 
     lib = build.load_library()
     blocks = ctypes.c_int(0)
     with torch.cuda.device(index):
-        rc = lib.scasml_fused_posterior_occupancy(int(want_grad), int(want_ops), F,
-                                                  ctypes.byref(blocks))
+        rc = lib.scasml_fused_posterior_occupancy(int(want_grad), int(want_ops), int(bf16),
+                                                  F, ctypes.byref(blocks))
     if rc != 0 or blocks.value < 1:
         raise RuntimeError(
             "fused_posterior: the kernel fits no block on an SM: "
@@ -231,15 +272,16 @@ def _occupancy(index: int, want_grad: bool, want_ops: bool, F: int) -> int:
 
 @functools.lru_cache(maxsize=256)
 def _card_plan(index: int, n: int, m: int, F: int, want_grad: bool,
-               want_ops: bool) -> Plan:
-    return plan(n, m, F, _sm_count(index), _occupancy(index, want_grad, want_ops, F),
-                want_grad, want_ops)
+               want_ops: bool, bf16: bool) -> Plan:
+    return plan(n, m, F, _sm_count(index),
+                _occupancy(index, want_grad, want_ops, bf16, F), want_grad, want_ops)
 
 
 def launch_plan(x, fused: FusedInputs, want_grad: bool, want_ops: bool) -> Plan:
     """The plan fused_posterior launches for x on its card."""
     return _card_plan(x.device.index, x.shape[0], fused.y.shape[0], fused.dim + 1,
-                      bool(want_grad), bool(want_ops))
+                      bool(want_grad), bool(want_ops),
+                      fused.operand_dtype == torch.bfloat16)
 
 
 def fused_posterior(x, fused: FusedInputs, want_grad: bool = False,
@@ -284,8 +326,10 @@ def fused_posterior(x, fused: FusedInputs, want_grad: bool = False,
     p = launch_plan(x, fused, want_grad, want_ops)
     scratch = (torch.empty(p.scratch_shape, dtype=torch.float32, device=dev)
                if p.splits > 1 else None)
+    bf16 = fused.operand_dtype == torch.bfloat16
     rc = lib.scasml_fused_posterior(
-        dev.index, int(want_grad), int(want_ops), x.data_ptr(), fused.cols.data_ptr(),
+        dev.index, int(want_grad), int(want_ops), int(bf16), x.data_ptr(),
+        fused.cols.data_ptr(),
         n, m_pad, F, *fused.gamma, p.splits,
         None if scratch is None else scratch.data_ptr(), buf.data_ptr(),
         torch._C._cuda_getCurrentRawStream(dev.index),  # current_stream's, without a Stream
@@ -297,5 +341,6 @@ def fused_posterior(x, fused: FusedInputs, want_grad: bool = False,
         )
     launches += 1
     key = (bool(want_grad), bool(want_ops))
-    launches_by_flags[key] = launches_by_flags.get(key, 0) + 1
+    counts = bf16_launches_by_flags if bf16 else launches_by_flags
+    counts[key] = counts.get(key, 0) + 1
     return out

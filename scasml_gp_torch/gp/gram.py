@@ -14,7 +14,7 @@ from typing import Tuple
 
 import torch
 
-from scasml_gp_torch.gp.kernels import PHI_OPS, PHI_SETS, op_block, pair_stats
+from scasml_gp_torch.gp.kernels import PHI_OPS, PHI_SETS, PairStats, op_block, pair_stats
 
 _JITTERS = (1e-3, 1e-1, 10.0)  # retried in order after a failed factorization
 
@@ -35,6 +35,45 @@ def gram_matrix(x_dom, x_bdy, gamma, dim: int,
         for a, sa in zip(PHI_OPS, PHI_SETS)
     ]
     return torch.cat(rows, dim=0)
+
+
+def gram_rows(x_dom, x_bdy, gamma, dim: int, lo: int, hi: int,
+              operand_dtype=torch.float32) -> torch.Tensor:
+    """Rows [lo, hi) of ``gram_matrix``, shape (hi - lo, 4N+Nb): each phi
+    family's rows that fall in the range, against every column.  The pair
+    statistics are formed for whole point sets and cut to the rows (one
+    product and a few elementwise passes, beside the blocks' many), so the
+    rows are bitwise those of ``gram_matrix``: a row block of another shape
+    could take another summation order in the product, which the wide
+    kernels' ill-conditioned factorization would amplify."""
+    pts = {"dom": x_dom, "bdy": x_bdy}
+    stats, blocks, start = {}, [], 0
+    for a, sa in zip(PHI_OPS, PHI_SETS):
+        size = pts[sa].shape[0]
+        a_lo, a_hi = max(lo, start) - start, min(hi, start + size) - start
+        if a_lo < a_hi:
+            for sb in pts:
+                if (sa, sb) not in stats:
+                    stats[sa, sb] = pair_stats(pts[sa], pts[sb], gamma, operand_dtype)
+            rows = {sb: PairStats(*(v[a_lo:a_hi] for v in stats[sa, sb])) for sb in pts}
+            blocks.append(torch.cat([op_block(a, b, rows[sb], gamma, dim)
+                                     for b, sb in zip(PHI_OPS, PHI_SETS)], dim=1))
+        start += size
+    return torch.cat(blocks, dim=0)
+
+
+def sharded_gram_matrix(x_dom, x_bdy, gamma, dim: int, mesh,
+                        operand_dtype=torch.float32) -> torch.Tensor:
+    """``gram_matrix`` assembled over the mesh's 'model' axis: each rank
+    computes its block of rows and the ranks gather the blocks, so every
+    rank holds the whole Gram, bitwise ``gram_matrix``'s."""
+    from scasml_gp_torch.parallel.mesh import all_gather_rows, split_range
+
+    phi = 4 * x_dom.shape[0] + x_bdy.shape[0]
+    lo, hi = split_range(phi, mesh.model, mesh.model_index)
+    counts = [b - a for a, b in (split_range(phi, mesh.model, i) for i in range(mesh.model))]
+    return all_gather_rows(gram_rows(x_dom, x_bdy, gamma, dim, lo, hi, operand_dtype),
+                           mesh.model_group, counts)
 
 
 def regularized_factorization(K: torch.Tensor, nugget: float

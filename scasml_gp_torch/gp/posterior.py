@@ -9,6 +9,14 @@ points for the gradient.
 for tensors on the CPU and the hand-written CUDA kernel of
 :mod:`scasml_gp_torch.gp.fused_posterior` for tensors on a GPU; it never
 falls back from one to the other.
+
+``operand_dtype='bfloat16'`` (PrecisionPolicy.gram) computes the pair
+statistics from bf16-rounded x and training rows, with float32 products and
+sums, while the gradient's contractions keep the unrounded rows, as the JAX
+package does.  ``shard_dom`` (a mesh, parallel/mesh.py) splits the training
+rows over its 'model' axis: each rank evaluates its slice and the ranks add
+the partial sums, which is exact because every output is a sum over
+training rows.
 """
 
 from __future__ import annotations
@@ -40,9 +48,10 @@ def _split_r(r: torch.Tensor, n_dom: int, n_bdy: int):
 
 
 def posterior_block(x, x_dom, x_bdy, r, gamma, dim: int, want_grad: bool,
-                    want_ops: bool) -> PosteriorOut:
+                    want_ops: bool, operand_dtype=torch.float32) -> PosteriorOut:
     """Single-pass posterior for one block of evaluation points x (n, d+1),
-    in plain PyTorch (the JAX ``_posterior_block``)."""
+    in plain PyTorch (the JAX ``_posterior_block``); ``operand_dtype``
+    (float32 or bfloat16) is that of the pair statistics."""
     gs, gt, gr = split_gamma(gamma)
     d = dim
     G = gs + d * gr
@@ -53,8 +62,8 @@ def posterior_block(x, x_dom, x_bdy, r, gamma, dim: int, want_grad: bool,
     )
     x = x.to(torch.float32)
 
-    st = pair_stats(x, x_dom, gamma)
-    stb = pair_stats(x, x_bdy, gamma)
+    st = pair_stats(x, x_dom, gamma, operand_dtype)
+    stb = pair_stats(x, x_bdy, gamma, operand_dtype)
     k, q, s, dt = st.kappa, st.q, st.s, st.dt
     kb, sb, dtb = stb.kappa, stb.s, stb.dt
     lapf = gs * gs * q + beta * s * s - d * (gs + gr)
@@ -131,31 +140,53 @@ def posterior_eval(x, x_dom, x_bdy, r, gamma, dim: int,
     CPU tensors take the plain version, ``chunk`` rows at a time when
     ``n > chunk``.  CUDA tensors launch the fused kernel once; ``chunk`` is
     ignored there, and ``fused`` may carry the kernel's inputs prepared once
-    per trained state (``GPState.fused_inputs``)."""
-    if operand_dtype not in (None, "float32", torch.float32):
-        raise NotImplementedError(
-            f"operand_dtype={operand_dtype!r}: only float32 posterior "
-            "operands are ported (ROADMAP Queue 1 I)"
-        )
-    if shard_dom is not None:
-        raise NotImplementedError(
-            "shard_dom: the sharded posterior is not ported (ROADMAP Queue 1 F2)")
-    if x.is_cuda:
-        from scasml_gp_torch.gp import fused_posterior as fp
+    per trained state (``GPState.fused_inputs``), for ``operand_dtype``.
+    With a ``shard_dom`` mesh of more than one 'model' rank, ``fused`` is
+    this rank's slice of them and the outputs are summed over the axis."""
+    from scasml_gp_torch.gp import fused_posterior as fp
+    from scasml_gp_torch.parallel.mesh import check_mesh
 
+    od = fp.operand_dtype_of(operand_dtype)
+    if shard_dom is not None and check_mesh(shard_dom).model > 1:
+        return _sharded_posterior(x, x_dom, x_bdy, r, gamma, dim, want_grad,
+                                  want_ops, chunk, od, shard_dom, fused)
+    if x.is_cuda:
         if fused is None:
-            fused = fp.prepare_inputs(x_dom, x_bdy, r, gamma, dim)
+            fused = fp.prepare_inputs(x_dom, x_bdy, r, gamma, dim, od)
         return fp.fused_posterior(x, fused, want_grad, want_ops)
+    return _chunked(lambda xc: posterior_block(
+        xc, x_dom, x_bdy, r, gamma, dim, want_grad, want_ops, od), x, chunk)
+
+
+def _chunked(block, x, chunk: Optional[int]) -> PosteriorOut:
     n = x.shape[0]
     if chunk is None or n <= chunk:
-        return posterior_block(x, x_dom, x_bdy, r, gamma, dim, want_grad,
-                               want_ops)
-    parts = [
-        posterior_block(x[i: i + chunk], x_dom, x_bdy, r, gamma, dim,
-                        want_grad, want_ops)
-        for i in range(0, n, chunk)
-    ]
+        return block(x)
+    parts = [block(x[i: i + chunk]) for i in range(0, n, chunk)]
     return PosteriorOut(*(
         None if vals[0] is None else torch.cat(vals, dim=0)
         for vals in zip(*parts)
     ))
+
+
+def _sharded_posterior(x, x_dom, x_bdy, r, gamma, dim, want_grad, want_ops,
+                       chunk, od, mesh, fused) -> PosteriorOut:
+    """This rank's share of the posterior, against its 'model' slice of the
+    stacked training rows (the kernel on a CUDA tensor, its plain twin on a
+    CPU one), summed over the 'model' axis in one collective."""
+    from scasml_gp_torch.gp import fused_posterior as fp
+    from scasml_gp_torch.parallel.mesh import all_reduce_sum, train_point_sharding
+
+    if fused is None:
+        full = fp.prepare_inputs(x_dom, x_bdy, r, gamma, dim, od)
+        fused = fp.shard_inputs(full, *train_point_sharding(mesh, full.y.shape[0]))
+    x = x.to(torch.float32)
+    if x.is_cuda:
+        part = fp.fused_posterior(x, fused, want_grad, want_ops)
+    else:
+        part = _chunked(lambda xc: fp.stacked_posterior(xc, fused, want_grad, want_ops),
+                        x, chunk)
+    present = [v for v in part if v is not None]
+    flat = all_reduce_sum(torch.cat([v.reshape(-1) for v in present]), mesh.model_group)
+    sums = iter(flat.split([v.numel() for v in present]))
+    return PosteriorOut(*(None if v is None else next(sums).view(v.shape) for v in part))

@@ -108,8 +108,9 @@ class GPAllenCahnSemigroup(TerminalSemigroupGP):
     def __init__(self, equation, config=None, precision=None, device=None,
                  width: Optional[float] = None, fit_nugget: float = 1e-4,
                  reaction: Optional[float] = None,
-                 terminal_backend: str = "auto"):
-        super().__init__(equation, config, precision=precision, device=device)
+                 terminal_backend: str = "auto", mesh=None):
+        super().__init__(equation, config, precision=precision, device=device,
+                         mesh=mesh)
         sig = float(equation.sigma())
         self.sig2 = sig**2
         self.fit_nugget = float(fit_nugget)

@@ -12,6 +12,14 @@ elementwise work.  The step loop is a Python loop whose stop/accept/damping
 state stays in device tensors: it makes no host sync.  Past
 ``GPConfig.dense_phi_max`` training goes to the dual-CG trainer of
 gp/distributed.py instead.
+
+``PrecisionPolicy.gram = 'bfloat16'`` computes the Gram's and the
+posterior's pair statistics from bf16-rounded points.  The parity modes
+(``laplacian='subset'``, ``parity_fp16``; gp/parity.py) train on the
+reference's biased Gram through its fp64 pseudo-Cholesky and evaluate its
+biased cross-kernels.  A ``mesh`` (parallel/mesh.py) with more than one
+'model' rank assembles the Gram by row blocks over that axis and splits the
+posterior's training rows over it.
 """
 
 from __future__ import annotations
@@ -22,7 +30,11 @@ import torch
 
 from scasml_gp_torch.config import GPConfig, PrecisionPolicy
 from scasml_gp_torch.equations.base import Equation
-from scasml_gp_torch.gp.gram import gram_matrix, regularized_factorization
+from scasml_gp_torch.gp.gram import (
+    gram_matrix,
+    regularized_factorization,
+    sharded_gram_matrix,
+)
 from scasml_gp_torch.gp.kernels import kernel_gammas
 from scasml_gp_torch.gp.posterior import posterior_eval
 from scasml_gp_torch.gp.state import GPState
@@ -145,22 +157,25 @@ class GP:
     form_cls = None
 
     def __init__(self, equation: Equation, config: Optional[GPConfig] = None,
-                 precision: Optional[PrecisionPolicy] = None, device=None):
+                 precision: Optional[PrecisionPolicy] = None, device=None,
+                 mesh=None):
+        from scasml_gp_torch.parallel.mesh import check_mesh
+
         self.equation = equation
         self.config = config or GPConfig()
         self.precision = precision or PrecisionPolicy()
         self.device = resolve_device(device)
+        # training rows split over the mesh's 'model' axis (parallel/mesh.py)
+        self.mesh = check_mesh(mesh)
         cfg = self.config
-        if cfg.laplacian != "exact" or cfg.parity_fp16:
-            raise NotImplementedError(
-                "parity modes (laplacian='subset', parity_fp16) are not ported "
-                "(ROADMAP Queue 1 I)"
+        if cfg.laplacian not in ("exact", "subset"):
+            raise ValueError(
+                f"unknown laplacian mode {cfg.laplacian!r}; "
+                "use 'exact' (closed form) or 'subset' (reference-parity "
+                "frozen-subset Hutchinson, gp/parity.py)."
             )
         if cfg.posterior_backend not in ("auto", "xla"):
             raise ValueError(f"unknown posterior backend {cfg.posterior_backend!r}")
-        if self.precision.gram != "float32":
-            raise NotImplementedError(
-                "only the float32 gram policy is ported (ROADMAP Queue 1 I)")
         equation.geometry()
         self.T = equation.T
         self.t0 = equation.t0
@@ -175,6 +190,25 @@ class GP:
         self.form: GPForm = self.form_cls(equation) if self.form_cls else None
         self.state: Optional[GPState] = None
         self.eval_chunk = cfg.eval_chunk or 4096
+        self._subset = None
+        self._posterior = posterior_eval
+        if cfg.laplacian == "subset":
+            if cfg.time_scale != 1.0 or cfg.ridge_scale != 0.0 or cfg.gamma_scale != 1.0:
+                raise ValueError(
+                    "parity mode (laplacian='subset') requires the reference's "
+                    "isotropic kernel: time_scale=1, ridge_scale=0, "
+                    "gamma_scale=1."
+                )
+            from scasml_gp_torch.gp.parity import make_parity_posterior, subset_indices
+
+            self._subset = subset_indices(self.d, cfg.laplacian_subset_size)
+            self._posterior = make_parity_posterior(self._subset, cfg.parity_fp16)
+
+    @property
+    def parity(self) -> bool:
+        """Whether a parity mode (``laplacian='subset'`` or ``parity_fp16``)
+        is on."""
+        return self.config.laplacian == "subset" or self.config.parity_fp16
 
     # ------------------------------------------------------------------ train
     def GPsolver(self, x_t_domain, x_t_boundary, GN_steps: Optional[int] = None,
@@ -194,8 +228,11 @@ class GP:
         bdy_g = self.equation.g(x_bdy)[:, 0].to(torch.float32)
         rhs = self.form.rhs_f(x_dom).to(torch.float32)
         gamma = torch.tensor(self.gamma, dtype=torch.float32, device=self.device)
-        out = self._train(x_dom, x_bdy, bdy_g, rhs, gamma, self.nugget, steps,
-                          cfg.damping, cfg.grad_tol, sol0)
+        if self.parity:
+            out = self._train_parity(x_dom, x_bdy, bdy_g, rhs, steps, sol0)
+        else:
+            out = self._train(x_dom, x_bdy, bdy_g, rhs, gamma, self.nugget, steps,
+                              cfg.damping, cfg.grad_tol, sol0)
         self.state = GPState(
             x_dom=x_dom, x_bdy=x_bdy, right_vector=out.right_vector,
             sol=out.sol, gamma=gamma, loss_history=out.loss_history,
@@ -230,29 +267,65 @@ class GP:
 
         cfg = self.config
         steps = cfg.dist_gn_steps if GN_steps is None else int(GN_steps)
-        distributed_gpsolver(self, x_dom, x_bdy, gn_steps=steps,
+        distributed_gpsolver(self, x_dom, x_bdy, self.mesh, gn_steps=steps,
                              cg_tol=cfg.dist_cg_tol, cg_maxiter=cfg.dist_cg_maxiter)
         self.loss_history = self.state.loss_history
         return self.predict(x_dom)
 
     def _train(self, x_dom, x_bdy, bdy_g, rhs, gamma, nugget, steps, damping,
-               grad_tol, sol0: Optional[torch.Tensor] = None) -> _TrainOut:
+               grad_tol, sol0: Optional[torch.Tensor] = None,
+               mesh=None) -> _TrainOut:
         """The dense Newton train for kernel precisions ``gamma`` (3,) and
         ``nugget``, shared by ``GPsolver`` and the tuner's candidates.
         ``sol0`` (3N,) is the initial point; None draws it from a generator
-        seeded with 0, times ``config.init_scale``."""
-        N = x_dom.shape[0]
-        dev = x_dom.device
+        seeded with 0, times ``config.init_scale``.  With a ``mesh`` (by
+        default the GP's) of more than one 'model' rank the Gram is
+        assembled by row blocks over that axis; the factorization and the
+        Newton steps run on every rank."""
+        sol0 = self._initial_point(x_dom.shape[0], x_dom.device, sol0)
+        mesh = self.mesh if mesh is None else mesh
+        od = self.precision.gram_dtype
+        if mesh is not None and mesh.model > 1:
+            K = sharded_gram_matrix(x_dom, x_bdy, gamma, self.d, mesh, od)
+        else:
+            K = gram_matrix(x_dom, x_bdy, gamma, self.d, od)
+        _, C = regularized_factorization(K, nugget)
+        del K
+        return self._newton_body(C, bdy_g, rhs, steps, damping, grad_tol, sol0)
+
+    def _initial_point(self, N: int, dev, sol0=None) -> torch.Tensor:
+        """``sol0`` checked, or the Newton train's initial point drawn from a
+        generator seeded with 0, times ``config.init_scale``."""
         if sol0 is None:
             gen = torch.Generator(device=dev).manual_seed(0)
             sol0 = torch.randn((3 * N,), generator=gen, device=dev) * self.config.init_scale
         sol0 = torch.as_tensor(sol0, dtype=torch.float32, device=dev)
         if sol0.shape != (3 * N,):
             raise ValueError(f"sol0 must have shape ({3 * N},), got {tuple(sol0.shape)}")
-        K = gram_matrix(x_dom, x_bdy, gamma, self.d)
-        _, C = regularized_factorization(K, nugget)
+        return sol0
+
+    def _train_parity(self, x_dom, x_bdy, bdy_g, rhs, steps,
+                      sol0: Optional[torch.Tensor] = None) -> _TrainOut:
+        """The parity train: the biased subset-Laplacian Gram (gp/parity.py)
+        and/or its fp16 quantization, factored by the reference's fp64
+        pseudo-Cholesky, then the same Newton steps on that C (the JAX
+        package's ``_train_from_C``)."""
+        from scasml_gp_torch.gp.parity import parity_factorization, parity_gram_matrix
+
+        cfg = self.config
+        fp16 = cfg.parity_fp16
+        if cfg.laplacian == "subset":
+            K = parity_gram_matrix(x_dom, x_bdy, float(self.gamma[0]), self._subset,
+                                   self.d, fp16)
+        else:  # the exact closed-form blocks, fp16-quantized
+            gamma = torch.tensor(self.gamma, dtype=torch.float32, device=x_dom.device)
+            K = gram_matrix(x_dom, x_bdy, gamma, self.d)
+            if fp16:
+                K = K.to(torch.float16).to(torch.float32)
+        _, C = parity_factorization(K, self.nugget, fp16)
         del K
-        return self._newton_body(C, bdy_g, rhs, steps, damping, grad_tol, sol0)
+        return self._newton_body(C, bdy_g, rhs, steps, cfg.damping, cfg.grad_tol,
+                                 self._initial_point(x_dom.shape[0], x_dom.device, sol0))
 
     def _newton_body(self, C, bdy_g, rhs, steps, damping, grad_tol,
                      sol0) -> _TrainOut:
@@ -346,14 +419,26 @@ class GP:
 
     def posterior_u(self, params: GPState, x_t, want_grad: bool = False,
                     want_ops: bool = False):
-        """Posterior of a trained state at x_t: (u, grad, dt/div/lap)."""
+        """Posterior of a trained state at x_t: (u, grad, dt/div/lap), with
+        the policy's operand dtype and the mesh's 'model' axis."""
         x = torch.as_tensor(x_t, dtype=torch.float32, device=params.x_dom.device)
-        return posterior_eval(
+        shard = self._dom_sharding()
+        fused = None
+        if not self.parity and (x.is_cuda or shard is not None):
+            fused = params.fused_inputs(self.precision.gram_dtype, shard)
+        return self._posterior(
             x, params.x_dom, params.x_bdy, params.right_vector, params.gamma,
             self.d, want_grad=want_grad, want_ops=want_ops,
-            chunk=self.eval_chunk,
-            fused=params.fused_inputs() if x.is_cuda else None,
+            chunk=self.eval_chunk, operand_dtype=self.precision.gram,
+            shard_dom=shard, fused=fused,
         )
+
+    def _dom_sharding(self):
+        """The mesh when its 'model' axis has more than one rank (the
+        posterior then splits its training rows over it), else None."""
+        if self.mesh is None or self.mesh.model <= 1:
+            return None
+        return self.mesh
 
     def residual_u(self, params: GPState, x_t) -> torch.Tensor:
         """Strong-form PDE residual of the posterior mean, shape (n, 1)."""
@@ -384,11 +469,13 @@ class GP:
         st = self.state
         if getattr(self, "_var_cache_for", None) is not st:
             self._var_C = factor_for_variance(st.x_dom, st.x_bdy, st.gamma,
-                                              self.nugget, self.d)
+                                              self.nugget, self.d,
+                                              self.precision.gram_dtype)
             self._var_cache_for = st
         x = torch.as_tensor(x_t_infer, dtype=torch.float32, device=st.x_dom.device)
         var = posterior_variance(x, st.x_dom, st.x_bdy, self._var_C, st.gamma,
-                                 self.d, chunk=self.eval_chunk)
+                                 self.d, chunk=self.eval_chunk,
+                                 operand_dtype=self.precision.gram_dtype)
         return torch.sqrt(var)[:, None]
 
     def predict_with_std(self, x_t_infer):

@@ -10,8 +10,6 @@ does the same from a dict of numpy arrays.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
-
 import numpy as np
 import torch
 
@@ -30,7 +28,7 @@ class GPState:
     sol: torch.Tensor           # (3N,) final (z1, z3, z5) unknowns
     gamma: torch.Tensor         # (3,) or () kernel precisions (gs, gt, gr)
     loss_history: torch.Tensor  # (steps+1,) Newton loss trace
-    _fused: Optional[object] = dataclasses.field(default=None, repr=False)
+    _fused: dict = dataclasses.field(default_factory=dict, repr=False)
 
     @property
     def n_domain(self) -> int:
@@ -44,16 +42,28 @@ class GPState:
     def dim(self) -> int:
         return self.x_dom.shape[1] - 1
 
-    def fused_inputs(self):
-        """The fused kernel's stacked inputs, built on first use and cached
-        (the state's tensors are never modified in place)."""
-        if self._fused is None:
-            from scasml_gp_torch.gp.fused_posterior import prepare_inputs
+    def fused_inputs(self, operand_dtype=torch.float32, mesh=None):
+        """The fused kernel's stacked inputs for ``operand_dtype`` (float32 or
+        the bf16 variant's), or with a mesh of more than one 'model' rank
+        this rank's slice of them; built on first use and cached (the
+        state's tensors are never modified in place)."""
+        from scasml_gp_torch.gp import fused_posterior as fp
 
-            self._fused = prepare_inputs(
-                self.x_dom, self.x_bdy, self.right_vector, self.gamma, self.dim
-            )
-        return self._fused
+        od = fp.operand_dtype_of(operand_dtype)
+        shard = None
+        if mesh is not None and mesh.model > 1:
+            from scasml_gp_torch.parallel.mesh import train_point_sharding
+
+            shard = train_point_sharding(mesh, self.n_domain + self.n_boundary)
+        key = (od, shard)
+        if key not in self._fused:
+            if shard is None:
+                self._fused[key] = fp.prepare_inputs(
+                    self.x_dom, self.x_bdy, self.right_vector, self.gamma,
+                    self.dim, od)
+            else:
+                self._fused[key] = fp.shard_inputs(self.fused_inputs(od), *shard)
+        return self._fused[key]
 
 
 def state_from_numpy(arrays: dict, device) -> GPState:

@@ -16,7 +16,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from scasml_gp_torch.utils.logio import MaybeWandb, dump_json
+from scasml_gp_torch.utils.logio import MaybeWandb, dump_json, tee_log
 from scasml_gp_torch.utils.profiling import harness_profile
 
 
@@ -36,12 +36,21 @@ class HarnessBase:
         self.T = equation.T
         self.wandb_enabled = wandb
         self.device = solver1.device
+        # False on every rank of a mesh but rank 0: that rank alone writes
+        # the log, metrics.json and the figures (harness/runner.py)
+        self.write_files = True
 
     # ---- helpers ----
     def _workdir(self, save_path: str) -> str:
         path = os.path.join(save_path, type(self).__name__)
-        os.makedirs(path, exist_ok=True)
+        if self.write_files:
+            os.makedirs(path, exist_ok=True)
         return path
+
+    def _log(self, path: str):
+        """The harness's text log at ``path`` (stdout and stderr into it);
+        a rank that writes no files sends them to os.devnull."""
+        return tee_log(path if self.write_files else os.devnull)
 
     def _wandb(self) -> MaybeWandb:
         """Metric stream for this run; a no-op unless the harness was built
@@ -106,6 +115,8 @@ class HarnessBase:
         return out, time.perf_counter() - start
 
     def _dump(self, path: str, name: str, data: dict):
+        if not self.write_files:
+            return
         oc = getattr(self, "oracle_consistency", None)
         if oc is not None and isinstance(data, dict):
             data = dict(data, oracle_consistency=oc)

@@ -14,7 +14,6 @@ import numpy as np
 from scasml_gp_torch.harness import plots
 from scasml_gp_torch.harness.base import HarnessBase, to_numpy
 from scasml_gp_torch.harness.metrics import valid_mask
-from scasml_gp_torch.utils.logio import tee_log
 
 
 class ComputingBudget(HarnessBase):
@@ -106,7 +105,7 @@ class ComputingBudget(HarnessBase):
                        "auto-selects a shallow schedule via its "
                        "variance-guard probe",
             }
-        with tee_log(f"{path}/ComputingBudget.log"):
+        with self._log(f"{path}/ComputingBudget.log"):
             print(f"{'budget':>8} {'GP':>12} {'MLP':>12} {'SCaSML':>12}")
             for i, b in enumerate(levels_used):
                 print(f"{b:>8} {errors['GP'][i]:>12.4e} "
@@ -120,7 +119,7 @@ class ComputingBudget(HarnessBase):
             wb.log({f"{name} rel L2, budget={b}": errors[name][i]
                     for name in errors})
         wb.finish()
-        if make_plots:
+        if make_plots and self.write_files:
             plots.budget_curves(levels_used, errors,
                                 f"{path}/ComputingBudget_Errors.pdf")
             plots.budget_improvement_bars(

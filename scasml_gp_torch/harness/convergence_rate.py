@@ -13,7 +13,6 @@ import numpy as np
 from scasml_gp_torch.harness import plots
 from scasml_gp_torch.harness.base import HarnessBase, to_numpy
 from scasml_gp_torch.harness.metrics import valid_mask
-from scasml_gp_torch.utils.logio import tee_log
 
 
 class ConvergenceRate(HarnessBase):
@@ -65,7 +64,7 @@ class ConvergenceRate(HarnessBase):
             "rel_L2": {"GP": err_gp, "SCaSML": err_sca},
             "slopes": {"GP": float(slope_gp), "SCaSML": float(slope_sca)},
         }
-        with tee_log(f"{path}/ConvergenceRate.log"):
+        with self._log(f"{path}/ConvergenceRate.log"):
             for s, e1, e3 in zip(train_sizes, err_gp, err_sca):
                 print(f"N={s}: GP {e1:.4e}  SCaSML {e3:.4e}")
             print(f"GP slope: {slope_gp:.3f}")
@@ -80,7 +79,7 @@ class ConvergenceRate(HarnessBase):
                 "SCaSML slope": float(slope_sca)})
         wb.finish()
 
-        if make_plots:
+        if make_plots and self.write_files:
             plots.loglog_convergence(
                 train_sizes,
                 {"GP": np.asarray(err_gp), "SCaSML": np.asarray(err_sca)},

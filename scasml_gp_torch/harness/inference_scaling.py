@@ -13,7 +13,6 @@ import numpy as np
 from scasml_gp_torch.harness import plots
 from scasml_gp_torch.harness.base import HarnessBase, to_numpy
 from scasml_gp_torch.harness.metrics import valid_mask
-from scasml_gp_torch.utils.logio import tee_log
 
 
 class InferenceScaling(HarnessBase):
@@ -71,7 +70,7 @@ class InferenceScaling(HarnessBase):
                        "reports/RESULTS.md); ScaSML auto-selects a shallow "
                        "schedule via its variance-guard probe",
             }
-        with tee_log(f"{path}/InferenceScaling.log"):
+        with self._log(f"{path}/InferenceScaling.log"):
             for rho, c, imp in zip(result["rho"], counters, improvement):
                 print(f"rho={rho}: evals={c} improvement={imp:.2f}%")
         self._dump(path, "metrics.json", result)
@@ -81,7 +80,7 @@ class InferenceScaling(HarnessBase):
             wb.log({f"evaluations, rho={rho}": c,
                     f"improvement pct, rho={rho}": float(imp)})
         wb.finish()
-        if make_plots:
+        if make_plots and self.write_files:
             plots.improvement_curve(
                 np.asarray(counters, np.float64), improvement,
                 "Evaluation Numbers",

@@ -14,7 +14,6 @@ from scipy import stats as sstats
 from scasml_gp_torch.harness import plots
 from scasml_gp_torch.harness.base import HarnessBase, to_numpy
 from scasml_gp_torch.harness.metrics import error_metrics, valid_mask
-from scasml_gp_torch.utils.logio import tee_log
 
 _SOLVERS = ("GP", "MLP", "SCaSML")
 
@@ -100,7 +99,7 @@ class RepeatedExperiment(HarnessBase):
                     "t": float(t), "p": float(p)
                 }
 
-        with tee_log(f"{path}/RepeatedExperiment.log"):
+        with self._log(f"{path}/RepeatedExperiment.log"):
             for m in per_metric:
                 for s in _SOLVERS:
                     st = result["metrics"][m][s]
@@ -124,7 +123,7 @@ class RepeatedExperiment(HarnessBase):
             wb.log({f"p-value {pair}, rho={rhomax}": t["p"]})
         wb.finish()
 
-        if make_plots:
+        if make_plots and self.write_files:
             plots.repetition_box(
                 {s: np.asarray(per_metric["rel_L2"][s]) for s in _SOLVERS},
                 "Relative $L^2$ error", f"{path}/RelL2_Repetitions.pdf",

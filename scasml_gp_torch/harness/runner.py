@@ -10,6 +10,15 @@ tunes the GP kernel first (:func:`tuned_config`); ``--fit-ml`` fits it by
 marginal likelihood instead (:func:`fitted_config`).  ``--device`` defaults to
 cuda and a missing CUDA device is an error: the runner never moves to the CPU
 by itself.  Figures need matplotlib; ``--no-plots`` skips them.
+
+A mesh larger than 1 x 1 (``--mesh-data``/``--mesh-model``) runs one process
+per rank, launched by ``torchrun`` (or joined by
+``parallel.mesh.initialize_distributed`` first):
+
+    torchrun --nproc-per-node 2 -m scasml_gp_torch.harness.runner --mesh-data 2
+
+Each rank takes ``cuda:<LOCAL_RANK>`` for ``--device cuda``; rank 0 alone
+writes the harness's files.
 """
 
 from __future__ import annotations
@@ -33,6 +42,7 @@ from scasml_gp_torch.harness.inference_scaling import InferenceScaling
 from scasml_gp_torch.harness.repeated import RepeatedExperiment
 from scasml_gp_torch.harness.simple_scaling import SimpleScaling
 from scasml_gp_torch.harness.simple_uniform import SimpleUniform
+from scasml_gp_torch.parallel.mesh import initialize_distributed, make_mesh, rank_device
 from scasml_gp_torch.picard.mlp import MLP, MLPFullHistory
 from scasml_gp_torch.picard.scasml import ScaSML, ScaSMLFullHistory
 from scasml_gp_torch.utils.device import resolve_device
@@ -64,27 +74,39 @@ FIT_ML_RIDGE_SCALES = (0.0, 10.0, 30.0, 100.0)
 
 
 def check_ported(config: RunConfig) -> None:
-    """Raise NotImplementedError for what the port does not run yet."""
+    """Raise ValueError for a harness or an equation the runner lacks."""
     if config.harness not in HARNESSES:
         raise ValueError(f"unknown harness {config.harness!r}")
     if config.equation not in EQUATIONS:
         raise ValueError(f"unknown equation {config.equation!r}")
-    if config.mesh.data * config.mesh.model > 1 or config.mesh.data == -1:
-        raise NotImplementedError(
-            "a device mesh (--mesh-data/--mesh-model) is not ported "
-            "(ROADMAP Queue 1 F2)")
 
 
-def build_solvers(config: RunConfig, device):
+def has_mesh(config: RunConfig) -> bool:
+    """Whether ``config.mesh`` is larger than 1 x 1 (one process per rank)."""
+    return config.mesh.data * config.mesh.model > 1 or config.mesh.data == -1
+
+
+def config_mesh(config: RunConfig):
+    """The 2-D ('data', 'model') mesh of ``config.mesh``, or None for 1 x 1.
+    A larger mesh joins the process group of a ``torchrun`` launch first;
+    mesh sizes that do not fit its world raise."""
+    if not has_mesh(config):
+        return None
+    initialize_distributed()
+    return make_mesh(config.mesh.data, config.mesh.model)
+
+
+def build_solvers(config: RunConfig, device, mesh=None):
     """(equation, gp, mlp, scasml) per the config's PDE/dim/variant, on
-    ``device``."""
+    ``device``; ``mesh`` (``config_mesh``) goes to every solver: the GP's
+    training rows over 'model', the rollouts' batches over 'data'."""
     check_ported(config)
     eq = EQUATIONS[config.equation](n_input=config.n_input)
     gp = GP_CLASSES[config.equation](
-        eq, config.gp, precision=config.precision, device=device
+        eq, config.gp, precision=config.precision, device=device, mesh=mesh
     )
     kw = dict(batch_chunk=config.picard.batch_chunk, precision=config.precision,
-              mesh=None, debug_checks=config.picard.debug_checks)
+              mesh=mesh, debug_checks=config.picard.debug_checks)
     if config.picard.variant == "full_history":
         mlp = MLPFullHistory(eq, device=device, **kw)
         scasml = ScaSMLFullHistory(eq, gp, **kw)
@@ -95,11 +117,14 @@ def build_solvers(config: RunConfig, device):
 
 
 def run(config: RunConfig, device="cuda", **test_kwargs):
-    """Build solvers + harness from the config on ``device`` and execute one
-    run; returns the harness's result (the contents of metrics.json)."""
-    dev = resolve_device(device)
-    eq, gp, mlp, scasml = build_solvers(config, dev)
+    """Build solvers + harness from the config on ``device`` (on a mesh,
+    this rank's device) and execute one run; returns the harness's result
+    (the contents of metrics.json), on every rank of a mesh."""
+    mesh = config_mesh(config)
+    dev = resolve_device(device if mesh is None else rank_device(device))
+    eq, gp, mlp, scasml = build_solvers(config, dev, mesh)
     harness = HARNESSES[config.harness](eq, gp, mlp, scasml, wandb=config.wandb)
+    harness.write_files = mesh is None or mesh.rank == 0
     return harness.test(run_dir(config), **harness_kwargs(config, **test_kwargs))
 
 
@@ -219,12 +244,15 @@ def main(argv=None):
                         help="check every op of the Picard rollouts for NaN and "
                              "raise at the first (one host sync per op)")
     parser.add_argument("--mesh-data", type=int, default=1,
-                        help="devices on the 'data' mesh axis; only 1 is ported")
+                        help="ranks on the 'data' mesh axis (batch sharding); "
+                             "-1 = all remaining ranks; under torchrun")
     parser.add_argument("--mesh-model", type=int, default=1,
-                        help="devices on the 'model' mesh axis; only 1 is ported")
+                        help="ranks on the 'model' mesh axis (Gram-row and "
+                             "training-row sharding); under torchrun")
     parser.add_argument("--bf16", action="store_true",
-                        help="bfloat16 precision policy (its bf16 Gram is not "
-                             "ported)")
+                        help="bfloat16 precision policy: bf16-operand pair "
+                             "statistics in the Gram and the posterior kernel, "
+                             "bf16 rollout path storage (float32 accumulation)")
     parser.add_argument("--wandb", action="store_true",
                         help="stream metrics to wandb (no-op if unavailable)")
     parser.add_argument("--profile-dir", default=None,
@@ -290,18 +318,21 @@ def main(argv=None):
             ),
         )
         check_ported(config)
+    # on a mesh each rank tunes (replicated) and runs on its own card
+    device = rank_device(args.device) if has_mesh(config) else args.device
+    if not args.config:
         if args.fit_ml:
-            config, fit = fitted_config(config, args.device)
+            config, fit = fitted_config(config, device)
             print(f"ML-fitted GP config: {config.gp} (NLML {fit.nlml:.1f}; grid "
                   f"seed {fit.table[1][0].ridge_scale})", file=sys.stderr)
         elif resolve_tune(args.tune, args.ridge_scale, args.time_scale,
                           args.fit_ml, config.equation):
-            config, _ = tuned_config(config, args.device)
+            config, _ = tuned_config(config, device)
             print(f"tuned GP config: {config.gp}", file=sys.stderr)
     extra = {"profile_dir": args.profile_dir} if args.profile_dir else {}
     if args.no_plots:
         extra["make_plots"] = False
-    result = run(config, device=args.device, **extra)
+    result = run(config, device=device, **extra)
     print("done:", config.harness, file=sys.stderr)
     return result
 

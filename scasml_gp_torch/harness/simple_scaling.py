@@ -13,7 +13,6 @@ import numpy as np
 from scasml_gp_torch.harness import plots
 from scasml_gp_torch.harness.base import HarnessBase, to_numpy
 from scasml_gp_torch.harness.metrics import valid_mask
-from scasml_gp_torch.utils.logio import tee_log
 
 
 class SimpleScaling(HarnessBase):
@@ -61,7 +60,7 @@ class SimpleScaling(HarnessBase):
             "evaluation_counter": counters,
             "improvement_pct": improvement.tolist(),
         }
-        with tee_log(f"{path}/SimpleScaling.log"):
+        with self._log(f"{path}/SimpleScaling.log"):
             for M, c, imp in zip(bases, counters, improvement):
                 print(f"M={M}: evals={c} improvement={imp:.2f}%")
         self._dump(path, "metrics.json", result)
@@ -71,7 +70,7 @@ class SimpleScaling(HarnessBase):
             wb.log({f"evaluations, M={M}": c,
                     f"improvement pct, M={M}": float(imp)})
         wb.finish()
-        if make_plots:
+        if make_plots and self.write_files:
             plots.improvement_curve(
                 np.asarray(counters, np.float64), improvement,
                 "Evaluation Numbers",

@@ -16,7 +16,6 @@ import torch
 from scasml_gp_torch.harness import plots
 from scasml_gp_torch.harness.base import HarnessBase, to_numpy
 from scasml_gp_torch.harness.metrics import summarize
-from scasml_gp_torch.utils.logio import tee_log
 
 
 class SimpleUniform(HarnessBase):
@@ -74,7 +73,7 @@ class SimpleUniform(HarnessBase):
             "diff_stats": diff_stats,
         }
 
-        with tee_log(f"{path}/SimpleUniform.log"):
+        with self._log(f"{path}/SimpleUniform.log"):
             print(f"Total time for GP: {time1} seconds")
             print(f"Total time for MLP: {time2} seconds")
             print(f"Total time for ScaSML: {time3} seconds")
@@ -123,7 +122,7 @@ class SimpleUniform(HarnessBase):
             )
         wb.finish()
 
-        if make_plots:
+        if make_plots and self.write_files:
             plots.error_violin(errors, f"{path}/Error_Distribution.pdf")
             coords = to_numpy(x_test)[mask, :2]
             plots.diff_hexbin(

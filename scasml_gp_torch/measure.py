@@ -66,6 +66,7 @@ PARTS = ("kernel", "splits", "host", "solves")
 HOST_ROWS = 64
 SOLVE_REPS = 21
 FP32_PEAK = 67e12  # H100 SXM float32 outside the tensor cores, at 700 W
+BF16_PEAK = 989e12  # H100 SXM bf16 in the tensor cores, dense, at 700 W
 HBM_RATE = 3.35e12  # H100 SXM device memory, bytes/s
 
 
@@ -78,13 +79,19 @@ def pair_flops(F: int, want_grad: bool, want_ops: bool) -> int:
             + (52 if want_ops else 0))
 
 
-def bound(n: int, m: int, F: int, want_grad: bool, want_ops: bool):
+def bound(n: int, m: int, F: int, want_grad: bool, want_ops: bool, bf16: bool = False):
     """(ms, 'operations' or 'bytes'): the least time an H100 could take for
     one posterior call of n rows against m training rows, the larger of its
     operations over the float32 peak and its bytes (x, the training rows and
     their four weights read once, the outputs written once) over the memory
-    rate."""
-    ops_ms = n * m * pair_flops(F, want_grad, want_ops) / FP32_PEAK * 1e3
+    rate.  With ``bf16`` (the bf16-operand variant) the x.y product's 2F
+    operations a pair have bf16 operands and count at the bf16 tensor-core
+    peak; the rest stays float32."""
+    flops = pair_flops(F, want_grad, want_ops)
+    if bf16:
+        ops_ms = n * m * (2 * F / BF16_PEAK + (flops - 2 * F) / FP32_PEAK) * 1e3
+    else:
+        ops_ms = n * m * flops / FP32_PEAK * 1e3
     outs = 1 + (F if want_grad else 0) + (3 if want_ops else 0)
     nbytes = 4 * (n * F + m * (F + 4) + n * outs)
     bytes_ms = nbytes / HBM_RATE * 1e3

@@ -7,6 +7,21 @@ Python, and the quadrature-point scan is a Python loop.  Every draw comes
 from the ``torch.Generator`` the caller passes in, taken in sequence: each
 tree node gets fresh numbers and no seed is reused across nodes.  Results
 match the JAX package in distribution, not bit for bit.
+
+The caller may pass a :class:`ShardedDraws` instead of a generator: the
+rollout then computes one rank's block of a batch split over a mesh's
+'data' axis, and every draw is made for the whole batch, of which the rank
+keeps its rows.  The ranks' generators stay in step, and their blocks
+together are the unsplit rollout's numbers.
+
+Two parity probes reproduce the reference's estimator quirks:
+``terminal_crn`` reseeds every terminal pass (common random numbers across
+the tree, the reference's PRNGKey(0) at every node), and
+``reference_semantics`` (quadrature variant) draws the interior normals in
+the path dtype, carries the z denominator delta_t as the reference does and
+quantizes every level's output through float16.  torch cannot replay JAX's
+threefry draws, so both match the JAX package in distribution, and their
+control flow exactly.
 """
 
 from __future__ import annotations
@@ -40,11 +55,62 @@ class PicardModel(NamedTuple):
     time_sampling: str = "uniform"
     terminal_z: str = "reference"   # 'reference': / (T - t); 'corrected': / sqrt(T - t)
     path_dtype: str = "float32"     # storage dtype of the Brownian paths
-    terminal_crn: "bool | int" = False      # parity probe, not ported
-    reference_semantics: bool = False       # parity probe, not ported
+    # Parity probe: True reseeds every terminal pass with 0 (all passes of
+    # one shape see the same draws, the reference's PRNGKey(0) at every
+    # node); an int reseeds with that int; False draws from the stream.
+    terminal_crn: "bool | int" = False
+    # Parity probe of the quadrature variant: interior normals drawn in
+    # path_dtype, the carried z denominator delta_t, float16 level outputs.
+    reference_semantics: bool = False
     # f at the level-0 (identically zero) estimate is bitwise zero (true for
     # the ScaSML residual generator), so the builders skip that f sweep.
     f_zero_at_zero: bool = False
+
+
+class ShardedDraws(NamedTuple):
+    """A generator shared by the ``count`` ranks of a 'data' axis, of which
+    this rank computes block ``index`` of every batch."""
+
+    gen: torch.Generator
+    index: int
+    count: int
+
+
+# Mantissa bits of the low-precision path dtypes, which set how many values
+# a normal draw in them can take (below).
+_MANTISSA = {torch.float16: 10, torch.bfloat16: 7}
+
+
+def _lowp_normal(shape, generator=None, device=None, dtype=torch.float16):
+    """Standard normals in float16 or bfloat16 with the law of
+    ``jax.random.normal`` in that dtype: sqrt(2) erfinv(u), with u uniform on
+    the dtype's 2^mantissa levels in [nextafter(-1, 0), 1), computed in the
+    dtype.  That law has 1024 values in float16 and 128 in bfloat16, no tail
+    past 3.5 and 2.9, and a mean of -0.0015 and -0.011; torch's own
+    ``randn`` in these dtypes rounds a float32 normal, another law, which
+    moves the low-precision rollouts' estimates away from the JAX
+    package's."""
+    levels = 2 ** _MANTISSA[dtype]
+    m = torch.randint(0, levels, tuple(shape), generator=generator, device=device)
+    lo = torch.nextafter(torch.tensor(-1.0, dtype=dtype), torch.tensor(0.0, dtype=dtype))
+    span = torch.tensor(1.0, dtype=dtype) - lo  # rounds to 2 in the dtype, as in JAX
+    u = (m.to(torch.float32) / levels).to(dtype) * span.to(device) + lo.to(device)
+    u = torch.maximum(u, lo.to(device))
+    return torch.erfinv(u.to(torch.float32)).to(dtype) * torch.tensor(
+        2.0 ** 0.5, dtype=dtype, device=device)
+
+
+def _draw(sample, gen, shape, **kw) -> torch.Tensor:
+    """``sample(shape, generator=...)``; normals in a low-precision dtype
+    follow JAX's law (``_lowp_normal``); for ShardedDraws, drawn for the
+    whole batch (``count`` times the rows) and cut to this rank's block."""
+    if sample is torch.randn and kw.get("dtype") in _MANTISSA:
+        sample = _lowp_normal
+    if not isinstance(gen, ShardedDraws):
+        return sample(shape, generator=gen, **kw)
+    B = shape[0]
+    full = sample((B * gen.count,) + tuple(shape[1:]), generator=gen.gen, **kw)
+    return full[gen.index * B:(gen.index + 1) * B]
 
 
 def _z_accum(vals, weights, mf: int, centered: bool):
@@ -75,6 +141,11 @@ def _terminal_pass(model: PicardModel, params, x, t, gen: torch.Generator,
     the MC axis; ``want_var`` also returns the variance of the u estimate."""
     B, dim, dev = x.shape[0], model.dim, x.device
     pd = DTYPES[model.path_dtype]
+    if model.terminal_crn is not False:
+        # frozen per shape: True is the reference's seed 0, an int another
+        seed = 0 if model.terminal_crn is True else int(model.terminal_crn)
+        frozen = torch.Generator(device=dev).manual_seed(seed)
+        gen = gen._replace(gen=frozen) if isinstance(gen, ShardedDraws) else frozen
     dT = (model.T - t)[:, None]
     u_sum = torch.zeros((B, 1), dtype=torch.float32, device=dev)
     usq_sum = torch.zeros((B, 1), dtype=torch.float32, device=dev)
@@ -83,7 +154,7 @@ def _terminal_pass(model: PicardModel, params, x, t, gen: torch.Generator,
     done = 0
     while done < mc:
         cur = min(_TERMINAL_MC_CHUNK, mc - done)
-        xi = torch.randn((B, cur, dim), generator=gen, device=dev, dtype=pd)
+        xi = _draw(torch.randn, gen, (B, cur, dim), device=dev, dtype=pd)
         XT = (x[:, None, :] + model.mu * dT[..., None]
               + model.sigma * torch.sqrt(dT)[..., None] * xi)
         xt_T = torch.cat(
@@ -115,20 +186,11 @@ def _terminal_pass(model: PicardModel, params, x, t, gen: torch.Generator,
     return u, z
 
 
-def _reject_parity_probes(model: PicardModel) -> None:
-    if model.terminal_crn is not False or model.reference_semantics:
-        raise NotImplementedError(
-            "terminal_crn and reference_semantics are parity probes that are "
-            "not ported (ROADMAP Queue 1 I)"
-        )
-
-
 def build_quadrature_uz(model: PicardModel, n: int, rho: int,
                         tables: PicardTables,
                         want_variance: bool = False) -> Callable:
     """fn(x_t, gen, params) -> (B, 1+dim) [u, z] for the quadrature variant;
     ``want_variance`` appends the top-level u-estimate MC variance column."""
-    _reject_parity_probes(model)
     Mf, Mg, Q, c, w = tables
     T, dim = model.T, model.dim
     pd = DTYPES[model.path_dtype]
@@ -160,12 +222,15 @@ def build_quadrature_uz(model: PicardModel, n: int, rho: int,
 
             X = x[:, None, :].expand(B, mf, dim).to(pd)
             W = torch.zeros((B, mf, dim), dtype=pd, device=dev)
+            draw_dtype = pd if model.reference_semantics else torch.float32
+            dt_ref = (T - t + 1e-6)[:, None]  # the terminal pass's delta_t
             for k in range(q):
                 dt_k, c_k, w_k = dts[:, k], cloc[:, k], wloc[:, k][:, None]
                 samp = (torch.zeros((B, mf), dtype=torch.float32, device=dev)
                         if want_var else None)
-                dW = torch.sqrt(dt_k)[:, None, None] * torch.randn(
-                    (B, mf, dim), generator=gen, device=dev, dtype=torch.float32)
+                dW = torch.sqrt(dt_k)[:, None, None] * _draw(
+                    torch.randn, gen, (B, mf, dim), device=dev,
+                    dtype=draw_dtype).to(torch.float32)
                 W = (W.to(torch.float32) + dW).to(pd)
                 X = (X.to(torch.float32) + model.mu * dt_k[:, None, None]
                      + model.sigma * dW).to(pd)
@@ -174,12 +239,15 @@ def build_quadrature_uz(model: PicardModel, n: int, rho: int,
                     dim=2,
                 ).reshape(-1, dim + 1)
                 denom_k = (c_k - t + 1e-6)[:, None]
+                # the reference's carried delta_t: positive terms divide by
+                # the value last assigned, (T - t) until an `if l:` body runs
+                denom_pos = dt_ref if model.reference_semantics else denom_k
 
                 if l > 0 or not model.f_zero_at_zero:
                     sim_l = uz(l, xt_k, gen, params)
                     y = model.f(params, xt_k, sim_l[:, :1], sim_l[:, 1:]).reshape(B, mf)
                     u = u + w_k * torch.mean(y, dim=1, keepdim=True)
-                    z = z + w_k * _z_accum(y, W, mf, model.center_z) / denom_k
+                    z = z + w_k * _z_accum(y, W, mf, model.center_z) / denom_pos
                     if want_var:
                         samp = samp + y
                 if l:
@@ -191,17 +259,22 @@ def build_quadrature_uz(model: PicardModel, n: int, rho: int,
                         z = z - w_k * _z_accum(y2, W, mf, model.center_z) / denom_k
                         if want_var:
                             samp = samp - y2
+                    dt_ref = denom_k  # the reference reassigns it here only
                 elif model.leaf is not None:
                     # GP PDE-residual injection at the leaf level
                     eps = model.leaf(params, xt_k).reshape(B, mf)
                     u = u + w_k * torch.mean(eps, dim=1, keepdim=True)
-                    z = z + w_k * _z_accum(eps, W, mf, model.center_z) / denom_k
+                    z = z + w_k * _z_accum(eps, W, mf, model.center_z) / denom_pos
                     if want_var:
                         samp = samp + eps
                 if want_var:
                     var = var + w_k**2 * _sample_var_of_mean(samp, mf)
 
         out = torch.clamp(torch.cat([u, z], dim=1), -model.clip, model.clip)
+        if model.reference_semantics:
+            # the reference quantizes every level's output; the carried
+            # delta_t restarts at (T - t) per level, exact for n <= 2
+            out = out.to(torch.float16).to(torch.float32)
         if want_var:
             out = torch.cat([out, var], dim=1)  # variance column unclipped
         return out
@@ -220,7 +293,6 @@ def build_full_history_uz(model: PicardModel, n: int, M: int,
     where w is the time-sampling weight.  The terminal pass draws M^lvl
     samples.  ``want_variance`` appends the top-level u-estimate MC variance
     column (terminal pass plus each level's variance of the mean)."""
-    _reject_parity_probes(model)
     T, dim = model.T, model.dim
     pd = DTYPES[model.path_dtype]
 
@@ -241,7 +313,7 @@ def build_full_history_uz(model: PicardModel, n: int, M: int,
 
         for l in range(lvl):
             mf = int(M ** (lvl - l))
-            v = torch.rand((B, mf), generator=gen, device=dev, dtype=torch.float32)
+            v = _draw(torch.rand, gen, (B, mf), device=dev, dtype=torch.float32)
             if model.time_sampling == "sqrt":
                 tau = v * v
                 wgt = (2.0 * v)[..., None]
@@ -249,7 +321,7 @@ def build_full_history_uz(model: PicardModel, n: int, M: int,
                 tau = v
                 wgt = torch.ones((B, mf, 1), dtype=torch.float32, device=dev)
             ts = (tau * dT)[..., None]                       # (B, mf, 1)
-            xi = torch.randn((B, mf, dim), generator=gen, device=dev, dtype=pd)
+            xi = _draw(torch.randn, gen, (B, mf, dim), device=dev, dtype=pd)
             X = x[:, None, :] + model.mu * ts + model.sigma * torch.sqrt(ts) * xi
             xt_k = torch.cat([X, t[:, None, None] + ts], dim=2).reshape(
                 -1, dim + 1).to(torch.float32)

@@ -4,6 +4,12 @@ Port of ``scasml_gp_tpu/picard/mlp.py``: ``MLP.u_solve(n, rho, x_t)`` and
 ``MLPFullHistory.u_solve(n, rho, x_t, M)``, each with ``uz_solve`` and an
 ``evaluation_counter``.  Each solver owns a ``torch.Generator`` seeded at
 construction; successive solves continue its stream.
+
+With a ``mesh`` (parallel/mesh.py) the test batch is split over its 'data'
+axis: each rank rolls out its rows, drawing every node's numbers for the
+whole batch and keeping its own (picard/core.py ``ShardedDraws``), and the
+ranks gather the outputs.  Every rank then holds the output of the unsplit
+rollout at the same seed, and the generators of all ranks stay in step.
 """
 
 from __future__ import annotations
@@ -16,6 +22,7 @@ from scasml_gp_torch.config import PrecisionPolicy
 from scasml_gp_torch.equations.base import Equation
 from scasml_gp_torch.picard.core import (
     PicardModel,
+    ShardedDraws,
     build_full_history_uz,
     build_quadrature_uz,
 )
@@ -40,16 +47,12 @@ class _PicardBase:
                  device=None, seed: int = 0,
                  terminal_crn: bool = False,
                  reference_semantics: bool = False):
-        if terminal_crn is not False or reference_semantics:
-            raise NotImplementedError(
-                "terminal_crn and reference_semantics are not ported "
-                "(ROADMAP Queue 1 I)"
-            )
-        if mesh is not None:
-            raise NotImplementedError(
-                "a device mesh is not ported (ROADMAP Queue 1 F2)")
+        from scasml_gp_torch.parallel.mesh import check_mesh
+
         self.equation = equation
         self.precision = precision or PrecisionPolicy()
+        # the test batch split over the mesh's 'data' axis
+        self.mesh = check_mesh(mesh)
         self.center_z = (
             getattr(equation, "center_z", False) if center_z is None else center_z
         )
@@ -71,6 +74,11 @@ class _PicardBase:
         # Debug mode: every op of the rollout is checked for NaN, so a NaN
         # raises at the op that made it (utils/debug.py).
         self.debug_checks = debug_checks
+        # the reference-RNG parity probe: frozen terminal draws at every
+        # tree node (core.PicardModel.terminal_crn)
+        self.terminal_crn = terminal_crn
+        # the reference-estimator probe (core.PicardModel.reference_semantics)
+        self.reference_semantics = reference_semantics
         self._cache: Dict[Tuple, Callable] = {}
 
     def _params(self):
@@ -91,6 +99,8 @@ class _PicardBase:
             time_sampling=self.time_sampling,
             terminal_z=self.terminal_z,
             path_dtype=self.precision.rollout,
+            terminal_crn=self.terminal_crn,
+            reference_semantics=self.reference_semantics,
         )
 
     def _build(self, schedule_key: Tuple) -> Callable:
@@ -113,16 +123,35 @@ class _PicardBase:
         B = x_t.shape[0]
         chunk = self.batch_chunk
         if chunk is None or B <= chunk:
-            return fn(x_t, self.gen, params)
+            return sharded_rollout(fn, x_t, self.gen, params, self.mesh)
         outs = []
         for start in range(0, B, chunk):
             piece = x_t[start: start + chunk]
             pad = chunk - piece.shape[0]
             if pad:
                 piece = torch.cat([piece, piece.new_zeros((pad, piece.shape[1]))])
-            out = fn(piece, self.gen, params)
+            out = sharded_rollout(fn, piece, self.gen, params, self.mesh)
             outs.append(out[: chunk - pad] if pad else out)
         return torch.cat(outs, dim=0)
+
+
+
+def sharded_rollout(fn, x_t, gen, params, mesh) -> torch.Tensor:
+    """``fn(x_t, gen, params)`` with the batch split over the mesh's 'data'
+    axis: this rank's rows rolled out with the whole batch's draws, then the
+    ranks' outputs gathered in order.  Without such a split (no mesh, one
+    'data' rank, or a batch that does not divide the axis: the JAX
+    package's replicated fallback) it is ``fn``."""
+    from scasml_gp_torch.parallel.mesh import all_gather_rows, batch_sharding
+
+    B = x_t.shape[0]
+    if mesh is None:
+        return fn(x_t, gen, params)
+    lo, hi = batch_sharding(mesh, B)
+    if hi - lo == B:
+        return fn(x_t, gen, params)
+    out = fn(x_t[lo:hi], ShardedDraws(gen, mesh.data_index, mesh.data), params)
+    return all_gather_rows(out, mesh.data_group, [hi - lo] * mesh.data)
 
 
 class MLP(_PicardBase):

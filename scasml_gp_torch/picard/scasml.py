@@ -20,7 +20,9 @@ by a James-Stein factor lambda from the rollout's variance column and a
 paired half-sample bias probe, abstains when the probed bias dominates, and
 for equations flagged ``escalate_M`` picks the schedule from a shallow-first
 ladder.  lambda is a statistic over the whole batch: ``_run`` joins the
-batch chunks before ``_guarded_u`` sees them.
+batch chunks, and on a mesh gathers the ranks' rows, before ``_guarded_u``
+sees them, so every rank computes the same lambda and takes the same ladder
+steps.
 """
 
 from __future__ import annotations
@@ -102,6 +104,7 @@ class _ScaSMLBase(_PicardBase):
             time_sampling=self.time_sampling,
             terminal_z=self.terminal_z,
             path_dtype=self.precision.rollout,
+            terminal_crn=self.terminal_crn,
             # f_breve(x, 0, 0) is bitwise zero (val1 == val2), so the
             # level-0 f sweep is skipped exactly.
             f_zero_at_zero=True,

@@ -72,10 +72,9 @@ def save_surrogate(path: str, gp) -> None:
 
 def load_surrogate(path: str, precision=None, device=None, mesh=None):
     """The surrogate saved at ``path`` (by either package), on ``device``
-    (by default the card).  A mesh is not ported (ROADMAP Queue 1 F2)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "serving on a device mesh is not ported (ROADMAP Queue 1 F2)")
+    (by default the card).  The GP carries ``mesh`` (parallel/mesh.py): its
+    posterior splits the training rows over the 'model' axis, so every rank
+    of the mesh must serve the same requests."""
     # the registries live beside the CLI; imported here to avoid a cycle
     from scasml_gp_torch.equations import EQUATIONS
     from scasml_gp_torch.harness.runner import GP_CLASSES
@@ -89,7 +88,7 @@ def load_surrogate(path: str, precision=None, device=None, mesh=None):
             f"checkpoint was saved from {manifest['gp_class']}, but "
             f"{manifest['equation']} maps to {cls.__name__}")
     gp = cls(eq, GPConfig(**manifest["gp_config"]), precision=precision,
-             device=device, **manifest.get("gp_kwargs", {}))
+             device=device, mesh=mesh, **manifest.get("gp_kwargs", {}))
     gp.state = load_state(os.path.join(path, "state.npz"), device=gp.device)
     return gp
 

@@ -9,7 +9,9 @@ hence --noconftest):
 
 Tolerance: rtol = atol = 2e-4, the posterior's bar (tests/test_pallas.py);
 kernel and plain version compute r^2 in the same norm form and differ in
-summation order.
+summation order.  The bf16-operand variant is held to its own plain version,
+``posterior_block(..., operand_dtype=torch.bfloat16)``, at the same bar: both
+round the same operands to bf16 and sum exact float32 products.
 """
 
 import dataclasses
@@ -153,7 +155,8 @@ def test_plan_matches_the_kernel_layout():
         for g in (False, True):
             by_smem = 233472 // (fp.smem_bytes(F, g) + 1024)
             for o in (False, True):
-                assert 1 <= fp._occupancy(0, g, o, F) <= by_smem
+                for bf16 in (False, True):
+                    assert 1 <= fp._occupancy(0, g, o, bf16, F) <= by_smem
 
 
 @pytest.mark.cuda
@@ -295,3 +298,78 @@ def test_distributed_trainer_on_the_card_matches_the_cpu():
                                rtol=1e-3, atol=0)
     rel = float((preds["cuda"] - preds["cpu"]).norm() / preds["cpu"].norm())
     assert rel < 1e-3, rel
+
+
+BF16 = torch.bfloat16
+
+
+def _assert_outputs_close(got, want, what):
+    for name, a, b in zip(want._fields, got, want):
+        if b is None:
+            assert a is None, name
+            continue
+        torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-4, msg=f"{name} {what}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("want_grad,want_ops", FLAGS)
+def test_bf16_kernel_matches_plain(problem, want_grad, want_ops):
+    """The bf16-operand variant against posterior_block with bf16 operands,
+    both gammas; the launch is counted as a bf16 one."""
+    x, x_dom, x_bdy, r = problem
+    for gamma in GAMMAS:
+        fused = fp.prepare_inputs(x_dom, x_bdy, r, gamma, D, operand_dtype=BF16)
+        before = dict(fp.bf16_launches_by_flags)
+        got = fp.fused_posterior(x, fused, want_grad, want_ops)
+        key = (want_grad, want_ops)
+        assert fp.bf16_launches_by_flags[key] == before.get(key, 0) + 1
+        want = posterior_block(x, x_dom, x_bdy, r, gamma, D, want_grad, want_ops,
+                               operand_dtype=BF16)
+        _assert_outputs_close(got, want, f"gamma={gamma}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,n_dom,n_bdy", WIDTHS)
+@pytest.mark.parametrize("sm_count", [1, None, 100000], ids=["S=1", "planned", "S=tiles"])
+def test_bf16_kernel_matches_plain_at_width(trained, monkeypatch, d, n_dom, n_bdy,
+                                            sm_count):
+    """The bf16 variant at F = 21, 101 and 256 with trained weights, one
+    split, the planned splits and one split per tile, all four
+    specialisations, at 2e-4; and it is bitwise repeatable."""
+    eq, st = trained(d, n_dom, n_bdy)
+    if sm_count is not None:
+        _forced_plan(monkeypatch, sm_count)
+    fused = st.fused_inputs(BF16)
+    gen = torch.Generator(device=st.x_dom.device).manual_seed(1)
+    for n in ROWS:
+        x = eq.geometry().sample_domain(gen, n, device=st.x_dom.device)
+        for flags in FLAGS:
+            got = fp.fused_posterior(x, fused, *flags)
+            again = fp.fused_posterior(x, fused, *flags)
+            want = posterior_block(x, st.x_dom, st.x_bdy, st.right_vector, st.gamma,
+                                   d, *flags, operand_dtype=BF16)
+            _assert_outputs_close(got, want, f"n={n} flags={flags}")
+            for a, b in zip(got, again):
+                assert a is None or torch.equal(a, b), flags
+
+
+@pytest.mark.cuda
+def test_bf16_posterior_eval_through_the_gp(trained):
+    """A GP with the bf16 policy evaluates through the bf16 variant (its own
+    cached inputs beside the float32 ones) and stays near the float32
+    posterior."""
+    import scasml_gp_torch as port
+
+    eq, st = trained(20, 150, 50)
+    gp = port.GPGradDependentNonlinear(
+        eq, port.GPConfig(), precision=port.PrecisionPolicy(gram="bfloat16"),
+        device=st.x_dom.device)
+    gp.state = st
+    x = eq.geometry().sample_domain(torch.Generator(device=st.x_dom.device).manual_seed(3),
+                                    500, device=st.x_dom.device)
+    fp.reset_launches()
+    u16 = gp.posterior_u(st, x, want_grad=True).u
+    assert fp.bf16_launches_by_flags == {(True, False): 1} and not fp.launches_by_flags
+    u32 = fp.fused_posterior(x, st.fused_inputs(), True).u
+    rel = float((u16 - u32).norm() / u32.norm())
+    assert rel < 2e-2, rel

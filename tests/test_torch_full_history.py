@@ -265,13 +265,16 @@ def test_batch_chunking_keeps_rows(carried):
 
 
 def test_unported_options_raise(carried):
+    """The parity probes and a mesh, once unported, construct and reach the
+    rollout's model (tests/test_torch_parity.py, tests/test_torch_mesh.py);
+    a mesh that is no Mesh raises."""
     eq, gp = carried["eq"], carried["gp"]
-    with pytest.raises(NotImplementedError):
-        port.ScaSMLFullHistory(eq, gp, terminal_crn=True)
-    with pytest.raises(NotImplementedError):
+    assert port.ScaSMLFullHistory(eq, gp, terminal_crn=True)._model().terminal_crn is True
+    with pytest.raises(TypeError, match="Mesh"):
         port.ScaSMLFullHistory(eq, gp, mesh=object())
-    with pytest.raises(NotImplementedError):
-        port.MLPFullHistory(eq, terminal_crn=True, device="cpu")
+    model = port.MLPFullHistory(eq, terminal_crn=3, reference_semantics=True,
+                                device="cpu")._model()
+    assert model.terminal_crn == 3 and model.reference_semantics
     # the JAX kwargs at their defaults are accepted, and debug_checks, once
     # unported, is on (tests/test_torch_debug_checks.py)
     port.MLPFullHistory(eq, mesh=None, debug_checks=False, device="cpu")

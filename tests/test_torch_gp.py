@@ -97,18 +97,23 @@ def test_gradient_and_residual_match_jax(trained):
 
 
 def test_unported_train_paths_raise():
-    """The parity modes and the bf16 Gram raise; the distributed trainer,
-    once among them, is ported (tests/test_torch_distributed.py) and takes
-    over past dense_phi_max; an untrained GP refuses to predict."""
+    """The parity modes and the bf16 Gram, once unported, construct
+    (tests/test_torch_parity.py, tests/test_torch_precision.py); the JAX
+    package's errors are kept: an unknown Laplacian mode, the subset
+    Laplacian on a non-isotropic kernel.  The distributed trainer takes over
+    past dense_phi_max; an untrained GP refuses to predict."""
     eq = port.GradDependentNonlinear(n_input=D + 1)
     x = torch.zeros((3, D + 1))
-    with pytest.raises(NotImplementedError):
-        port.GPGradDependentNonlinear(eq, port.GPConfig(laplacian="subset"), device="cpu")
-    with pytest.raises(NotImplementedError):
-        port.GPGradDependentNonlinear(eq, port.GPConfig(parity_fp16=True), device="cpu")
-    with pytest.raises(NotImplementedError):
-        port.GPGradDependentNonlinear(eq, precision=port.PrecisionPolicy(gram="bfloat16"),
+    with pytest.raises(ValueError, match="unknown laplacian"):
+        port.GPGradDependentNonlinear(eq, port.GPConfig(laplacian="hutchinson"),
                                       device="cpu")
+    with pytest.raises(ValueError, match="isotropic"):
+        port.GPGradDependentNonlinear(
+            eq, port.GPConfig(laplacian="subset", gamma_scale=0.5), device="cpu")
+    assert port.GPGradDependentNonlinear(eq, port.GPConfig(parity_fp16=True),
+                                         device="cpu").parity
+    port.GPGradDependentNonlinear(eq, precision=port.PrecisionPolicy(gram="bfloat16"),
+                                  device="cpu")
     gp = port.GPGradDependentNonlinear(eq, port.GPConfig(dense_phi_max=8), device="cpu")
     with pytest.raises(RuntimeError):
         gp.predict(x)

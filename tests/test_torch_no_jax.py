@@ -1,7 +1,9 @@
 """The port imports neither JAX nor the JAX package: the GPU host has no JAX,
 so one stray import would break the port there.  Checked in a fresh
 interpreter, since this test process has JAX loaded already.  "*" imports
-every module of the package, found by walking it, and chip_smoke.py."""
+every module of the package, found by walking it, and chip_smoke.py;
+"mesh child" imports tests/_torch_mesh_child.py, which the gloo worlds of
+tests/test_torch_mesh.py run."""
 
 import os
 import subprocess
@@ -12,7 +14,9 @@ import pytest
 MODULES = ("scasml_gp_torch", "scasml_gp_torch.harness.runner",
            "scasml_gp_torch.gp.tuning", "scasml_gp_torch.gp.marginal",
            "scasml_gp_torch.gp.distributed", "scasml_gp_torch.serve",
-           "scasml_gp_torch.utils.debug", "*")
+           "scasml_gp_torch.utils.debug", "scasml_gp_torch.parallel.mesh",
+           "scasml_gp_torch.parallel.sharded", "scasml_gp_torch.gp.parity", "*",
+           "mesh child")
 
 
 @pytest.mark.parametrize("module", MODULES)
@@ -27,6 +31,9 @@ def test_port_imports_no_jax(module):
             "for name in names:\n"
             "    importlib.import_module(name)\n"
         )
+    elif module == "mesh child":
+        load = ("sys.path.insert(0, 'tests')\n"
+                "importlib.import_module('_torch_mesh_child')\n")
     else:
         load = f"importlib.import_module({module!r})\n"
     code = (

@@ -118,13 +118,16 @@ def test_quadrature_weights_integrate_constant_forcing():
 
 
 def test_unported_options_raise(carried):
+    """The parity probes and a mesh, once unported, construct and reach the
+    rollout's model (tests/test_torch_parity.py, tests/test_torch_mesh.py);
+    a mesh that is no Mesh raises."""
     eq, gp = carried["eq"], carried["gp"]
-    with pytest.raises(NotImplementedError):
-        port.ScaSML(eq, gp, terminal_crn=True)
-    with pytest.raises(NotImplementedError):
+    assert port.ScaSML(eq, gp, terminal_crn=True)._model().terminal_crn is True
+    with pytest.raises(TypeError, match="Mesh"):
         port.ScaSML(eq, gp, mesh=object())
-    with pytest.raises(NotImplementedError):
-        port.MLP(eq, terminal_crn=True, device="cpu")
+    model = port.MLP(eq, terminal_crn=3, reference_semantics=True,
+                     device="cpu")._model()
+    assert model.terminal_crn == 3 and model.reference_semantics
 
 
 # ------------------------------------------------ ScaSML on a carried state

@@ -135,11 +135,17 @@ def test_ragged_rows_and_chunk_path(problem):
 
 
 def test_unported_options_raise(problem):
+    """bf16 operands and shard_dom, once unported, run
+    (tests/test_torch_precision.py, tests/test_torch_mesh.py); an operand
+    dtype other than float32 or bfloat16, and a shard_dom that is no mesh,
+    still raise."""
     args = _t(*problem)
-    with pytest.raises(NotImplementedError):
-        posterior_eval(*args, GAMMAS["isotropic"], D, operand_dtype="bfloat16")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="operand dtype"):
+        posterior_eval(*args, GAMMAS["isotropic"], D, operand_dtype="float16")
+    with pytest.raises(TypeError, match="Mesh"):
         posterior_eval(*args, GAMMAS["isotropic"], D, shard_dom=object())
+    out = posterior_eval(*args, GAMMAS["isotropic"], D, operand_dtype="bfloat16")
+    assert torch.isfinite(out.u).all()
 
 
 @pytest.fixture(scope="module")

@@ -71,8 +71,16 @@ def test_load_surrogate_on_a_mesh_is_not_ported(tmp_path, trained_gp):
     _, gp = trained_gp
     path = str(tmp_path / "ckpt")
     save_surrogate(path, gp)
-    with pytest.raises(NotImplementedError, match="F2"):
+    # once unported: a 1 x 1 mesh loads the same surrogate (a real mesh is
+    # in tests/test_torch_mesh.py); a mesh that is no Mesh raises
+    from scasml_gp_torch.parallel import make_mesh
+
+    with pytest.raises(TypeError, match="Mesh"):
         load_surrogate(path, device="cpu", mesh=object())
+    gp2 = load_surrogate(path, device="cpu", mesh=make_mesh(1, 1))
+    assert gp2.mesh.shape == {"data": 1, "model": 1}
+    x = gp.state.x_dom[:9]
+    assert torch.equal(gp2.predict(x), gp.predict(x))
 
 
 def test_bucketed_predict_matches_direct(trained_gp):
