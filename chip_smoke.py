@@ -106,6 +106,19 @@ Phases, each printing its own lines:
               ScaSML and MLP, and MLP with terminal_crn, reference_semantics
               and float16 paths, on 1200 points, beside the JAX package's
               figures in reports/quadrature_parity.json.
+  15. drivers: the experiment drivers of scasml_gp_torch.scripts through
+              their mains (into results/smoke_drivers/): one run_all row
+              (GradDependentNonlinear d=20 full history RepeatedExperiment,
+              flagless: the tune, then 10 repetitions; a row holding "error"
+              fails the phase), summarize_campaign on its summary,
+              throughput at d=100 (2 reps), high_dim grad_dep at d=250
+              (untuned GP on 1000 + 200 points, 500 + 100 test points);
+              rel-L2, times and kernel launches of each; then the kernel at
+              F = 251 against posterior_block for all four specialisations,
+              on the GP that high_dim trained and the rows of the largest
+              call of each that its run launched (grad+ops, which it does
+              not launch, on the gradient call's rows; 2e-4, two launches
+              bitwise equal), both also against a float64 posterior_block.
 Kernel times are CUDA-event times of calls back to back as a caller sees
 them (``ms`` and ``plain_ms``, the host's launch cost included, as in every
 earlier version of this script) and with the stream held until every call is
@@ -1529,6 +1542,157 @@ def parity_phase(dev, smi, gp_exact, x_dom, x_bdy, x_test):
         check(math.isfinite(e) and e < 0.5, f"{name}: rel-L2 {e}")
 
 
+DRIVERS_DIR = "results/smoke_drivers"
+HIGH_D = 250
+HIGH_D_N_TEST = 500  # --n-test: 500 + 100 test points
+# The posterior calls of high_dim grad_dep: GPsolver's predict at its 1000
+# training points, the GP's predict at the 600 test points, then one
+# ScaSMLFullHistory u_solve(2, M=3) there (as FH_SPECS at 1200 points;
+# pinned on the CPU by counting GP.posterior_u).  The path launches no
+# grad+ops call: that specialisation is held on the rows of the gradient call.
+HIGH_D_FLAGS = ((False, False), (True, False), (False, True), (True, True))
+EXPECTED_HIGH_D_LAUNCHES = {k: v + 2 * (k == (False, False))
+                            for k, v in EXPECTED_FH_SOLVE_LAUNCHES.items()}
+# run_all's RepeatedExperiment row: the tune, GPsolver's predict, then 10
+# repetitions, each a predict and a full-history u_solve
+EXPECTED_CAMPAIGN_LAUNCHES = {
+    k: v + (k == (False, False)) + 10 * (EXPECTED_FH_SOLVE_LAUNCHES[k] + (k == (False, False)))
+    for k, v in EXPECTED_TUNE_LAUNCHES.items()}
+THROUGHPUT_KEYS = ["d", "batch", "n", "M", "evals_per_call", "single_device_s",
+                   "gsamples_per_sec_per_device"]
+
+
+def float64_errors(x, fused, st, d, flags):
+    """Max abs error by output of the kernel and of the float32 plain
+    version against the float64 plain evaluation of the same function, and
+    the largest ratio of the kernel's error to the kernel-vs-plain bar
+    (2e-4 + 2e-4 |float64 value|)."""
+    import torch
+
+    from scasml_gp_torch.gp import fused_posterior as fp
+    from scasml_gp_torch.gp.posterior import posterior_block
+
+    args = (x, st.x_dom, st.x_bdy, st.right_vector, st.gamma, d, *flags)
+    ref = posterior_block(*args, operand_dtype=torch.float64)
+    plain = posterior_block(*args)
+    kern = fp.fused_posterior(x, fused, *flags)
+    out = {}
+    for name, k, p, r in zip(ref._fields, kern, plain, ref):
+        if r is None:
+            continue
+        ek, ep = (k.double() - r).abs(), (p.double() - r).abs()
+        out[name] = {"kernel": float(ek.max()), "plain": float(ep.max()),
+                     "kernel_over_bar": float((ek / (ATOL + RTOL * r.abs())).max())}
+    return out
+
+
+def drivers_phase(smi):
+    """Phase 15: the experiment drivers (scasml_gp_torch.scripts) through
+    their mains, and the kernel at F = 251 on high_dim grad_dep's trained GP
+    and the rows it launched, against its plain version (and both against a
+    float64 evaluation).  Returns the F = 251 kernel records."""
+    import torch
+
+    from scasml_gp_torch.gp import fused_posterior as fp
+    from scasml_gp_torch.gp.posterior import posterior_block
+    from scasml_gp_torch.picard.schedule import count_evaluations_full_history
+    from scasml_gp_torch.scripts import high_dim, run_all, summarize_campaign, throughput
+
+    # 15a. one campaign row, flagless: the tune, then RepeatedExperiment
+    tag = f"GradDependentNonlinear/{D}d/full_history/RepeatedExperiment"
+    torch.cuda.synchronize()
+    fp.reset_launches()
+    t0 = time.perf_counter()
+    run_all.main(["--dims", str(D), "--variants", "full_history", "--harness",
+                  "RepeatedExperiment", "--save-path", DRIVERS_DIR, "--device", "cuda",
+                  "--no-plots"])
+    torch.cuda.synchronize()
+    campaign_s = time.perf_counter() - t0
+    campaign_launches = dict(fp.launches_by_flags)
+    with open(os.path.join(DRIVERS_DIR, "run_all_summary.json")) as fh:
+        summary = json.load(fh)
+    bad = {k: row["error"] for k, row in summary.items() if "error" in row}
+    check(not bad, f"run_all rows failed: {bad}")
+    rel = summary[tag]["metrics"]["rel_L2"]
+    print(f"[drivers] {smi}; run_all {tag} (tune + 10 repetitions) in {campaign_s:.3f} s: "
+          f"rel-L2 GP {rel['GP']:.6f}, MLP {rel['MLP']:.6f}, SCaSML {rel['SCaSML']:.6f}; "
+          f"kernel launches {by_flags_str(campaign_launches)}", flush=True)
+    check(rel["GP"] < 0.06 and rel["SCaSML"] < rel["GP"] and rel["MLP"] < 0.30,
+          f"run_all row rel-L2 {rel}")
+    check(campaign_launches == EXPECTED_CAMPAIGN_LAUNCHES,
+          f"run_all launches {campaign_launches} != {EXPECTED_CAMPAIGN_LAUNCHES}")
+
+    # 15b. the campaign's table
+    table = summarize_campaign.main(["--save-path", DRIVERS_DIR])
+    check(f"| GradDependentNonlinear | {D}d | full_history | {rel['GP']:.4f} |" in table,
+          "summarize_campaign did not print the run_all row")
+
+    # 15c. throughput at d=100
+    res = throughput.main(["--d", "100", "--reps", "2", "--device", "cuda"])
+    check(list(res) == THROUGHPUT_KEYS, f"throughput keys {list(res)}")
+    check(res["evals_per_call"] == count_evaluations_full_history(3, 4)
+          and res["gsamples_per_sec_per_device"] > 0, f"throughput {res}")
+    print(f"[drivers] {smi}; throughput d=100, batch 1200, (n, M) = (3, 4), 2 reps: "
+          f"{res['single_device_s'] * 1e3:.3f} ms a call, "
+          f"{res['gsamples_per_sec_per_device']:.6f} G evaluations/s", flush=True)
+
+    # 15d. high_dim grad_dep at d=250: the kernel at F = 251. The kernel's
+    # inputs are recorded as high_dim launches it, so 15e holds the kernel
+    # to its plain version on the rollout's own rows and on the GP it ran.
+    launched, keep, wrapper = {}, {}, fp.fused_posterior
+
+    def recording(x, fused, want_grad=False, want_ops=False):
+        flags = (want_grad, want_ops)
+        if x.shape[0] > launched.get(flags, (torch.empty(0),))[0].shape[0]:
+            launched[flags] = (x.clone(), fused)
+        return wrapper(x, fused, want_grad, want_ops)
+
+    torch.cuda.synchronize()
+    fp.reset_launches()
+    fp.fused_posterior = recording
+    try:
+        hd = high_dim.main(["--equation", "grad_dep", "--dim", str(HIGH_D), "--n-test",
+                            str(HIGH_D_N_TEST), "--out", DRIVERS_DIR, "--device", "cuda"],
+                           keep=keep)
+        torch.cuda.synchronize()
+    finally:
+        fp.fused_posterior = wrapper
+    hd_launches = dict(fp.launches_by_flags)
+    print(f"[drivers] {smi}; high_dim grad_dep d={HIGH_D} (untuned, 1000 + 200 points, "
+          f"{hd['n_test']} test points): rel-L2 " + ", ".join(
+              f"{k} {v:.6f}" for k, v in hd["rel_L2"].items())
+          + f"; wall s {hd['wall_s']}; kernel launches {by_flags_str(hd_launches)}",
+          flush=True)
+    check(all(math.isfinite(v) for v in hd["rel_L2"].values()), f"high_dim {hd}")
+    check(hd_launches == EXPECTED_HIGH_D_LAUNCHES,
+          f"high_dim launches {hd_launches} != {EXPECTED_HIGH_D_LAUNCHES}")
+
+    # 15e. the kernel at F = 251 against its plain version, on the GP that
+    # high_dim trained and the largest call of each specialisation it made
+    st = keep["gp"].state
+    records = {}
+    for flags in HIGH_D_FLAGS:
+        x, fused = launched[flags if flags in launched else (True, False)]
+        n = x.shape[0]
+        check(torch.equal(fused.cols, st.fused_inputs().cols),
+              f"high_dim's {flags} call ran on inputs other than its GP's")
+        f64 = float64_errors(x, fused, st, HIGH_D, flags)
+        print(f"[drivers] F={HIGH_D + 1} (want_grad={flags[0]:d}, want_ops={flags[1]:d}) "
+              f"n={n}, against a float64 evaluation: " + ", ".join(
+                  f"{k} kernel {v['kernel']:.3g} / plain {v['plain']:.3g} (kernel / bar "
+                  f"{v['kernel_over_bar']:.3g})" for k, v in f64.items()), flush=True)
+        errs = compare_kernel(x, fused, st.x_dom, st.x_bdy, st.right_vector, st.gamma,
+                              HIGH_D, flags, f"high_dim GP d={HIGH_D}, n={n}", repeat=True)
+        rec = kernel_record(x, fused, flags, lambda: posterior_block(
+            x, st.x_dom, st.x_bdy, st.right_vector, st.gamma, HIGH_D, *flags), errs)
+        rec["launches"] = hd_launches.get(flags, 0)
+        rec["vs_float64"] = f64
+        records[flags] = rec
+        print(f"[drivers] {smi}; kernel (want_grad={flags[0]:d}, want_ops={flags[1]:d}) "
+              f"n={n}, F={HIGH_D + 1}, high_dim's GP and rows: {describe(rec)}", flush=True)
+    return records, {f: campaign_launches.get(f, 0) for f in MAIN_SPECS}
+
+
 def main():
     import torch
 
@@ -1702,6 +1866,9 @@ def main():
     # 14. the parity modes and probes
     parity_phase(dev, smi, gp, x_dom, x_bdy, x_test)
 
+    # 15. the experiment drivers, and the kernel at F = 251
+    wide, campaign_launches = drivers_phase(smi)
+
     kernels = []
     for f, (caller, _) in MAIN_SPECS.items():
         rec = {
@@ -1723,6 +1890,7 @@ def main():
             "mesh": {"launches_1x1_step": mesh_launches["a"].get(f, 0),
                      "launches_by_rank": [r[k].get(f"{f[0]:d}{f[1]:d}", 0)
                                           for r in mesh_launches["b"] for k in r]},
+            "run_all": {"launches": campaign_launches[f]},
         }
         if f == (True, False):  # the gradient kernel with the operators on too
             rec["sine_d100_with_ops"] = extra[(True, True)]
@@ -1741,6 +1909,16 @@ def main():
         })
     kernels[-2]["with_ops"] = {"bench": bf16["bench", (True, True)],
                                "full_history": bf16["full_history", (True, True)]}
+    for f, (caller, _) in MAIN_SPECS.items():
+        kernels.append({
+            "name": f"fused_posterior[high_dim F={HIGH_D + 1} {caller}: "
+                    f"want_grad={f[0]:d} want_ops={f[1]:d}]",
+            "route": "cuda",
+            "source": "scasml_gp_torch/csrc/fused_posterior.cu",
+            "replaces": REPLACES,
+            **wide[f],
+        })
+    kernels[-2]["with_ops"] = wide[(True, True)]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

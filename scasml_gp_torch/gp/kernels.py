@@ -60,11 +60,13 @@ def pair_stats(x: torch.Tensor, y: torch.Tensor, gamma,
     package; this is why the port must not run float32 products in TF32.
     ``operand_dtype=torch.bfloat16`` rounds the operands to bf16 first
     (products of bf16 values are exact in float32, so this equals bf16
-    operands with float32 accumulation).  ``y_stats`` may carry
-    ``row_stats(y)`` computed once for a fixed y."""
+    operands with float32 accumulation); ``operand_dtype=torch.float64``
+    computes in float64 (a reference for the float32 paths).  ``y_stats``
+    may carry ``row_stats(y)`` computed once for a fixed y."""
     gs, gt, gr = split_gamma(gamma)
-    x = x.to(operand_dtype).to(torch.float32)
-    y = y.to(operand_dtype).to(torch.float32)
+    work = torch.float64 if operand_dtype == torch.float64 else torch.float32
+    x = x.to(operand_dtype).to(work)
+    y = y.to(operand_dtype).to(work)
     xs = row_stats(x)
     ys = row_stats(y) if y_stats is None else y_stats
     xy = x @ y.T

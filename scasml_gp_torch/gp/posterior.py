@@ -51,16 +51,18 @@ def posterior_block(x, x_dom, x_bdy, r, gamma, dim: int, want_grad: bool,
                     want_ops: bool, operand_dtype=torch.float32) -> PosteriorOut:
     """Single-pass posterior for one block of evaluation points x (n, d+1),
     in plain PyTorch (the JAX ``_posterior_block``); ``operand_dtype``
-    (float32 or bfloat16) is that of the pair statistics."""
+    (float32 or bfloat16) is that of the pair statistics; float64 computes
+    everything in float64, the reference the float32 versions are held to."""
     gs, gt, gr = split_gamma(gamma)
     d = dim
     G = gs + d * gr
     beta = 2.0 * gs * gr + d * gr * gr
     n_dom, n_bdy = x_dom.shape[0], x_bdy.shape[0]
+    work = torch.float64 if operand_dtype == torch.float64 else torch.float32
     r1, r2, r3, r4, r5 = (
-        v[None, :] for v in _split_r(r.to(torch.float32), n_dom, n_bdy)
+        v[None, :] for v in _split_r(r.to(work), n_dom, n_bdy)
     )
-    x = x.to(torch.float32)
+    x, x_dom, x_bdy = x.to(work), x_dom.to(work), x_bdy.to(work)
 
     st = pair_stats(x, x_dom, gamma, operand_dtype)
     stb = pair_stats(x, x_bdy, gamma, operand_dtype)

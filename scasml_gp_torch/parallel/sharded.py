@@ -123,31 +123,42 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def dryrun_multichip(n_devices: int) -> None:
-    """Run one sharded train and solve step on an n_devices mesh of gloo CPU
-    processes (data x model, model = 2 when n is even): GP training with the
-    Gram's rows over 'model', the ScaSML rollout with the batch over 'data'.
-    Raises unless every process finishes with the same finite output."""
+def run_gloo_world(child: str, n: int, timeout: float, args: tuple = ()) -> list:
+    """Run ``child(rank, n, port, *args)`` (``child`` the dotted path of a
+    function, ``args`` literals) in n fresh CPU processes, which join one
+    gloo world through ``port``; returns each rank's (returncode, output).
+    A rank that outlives ``timeout`` seconds is killed."""
     port = _free_port()
+    module, fn = child.rsplit(".", 1)
+    tail = "".join(f", {a!r}" for a in args)
     root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     env = dict(os.environ, PYTHONPATH=root)
     procs = [subprocess.Popen(
-        [sys.executable, "-c", "from scasml_gp_torch.parallel.sharded import "
-         f"_dryrun_child; _dryrun_child({rank}, {n_devices}, {port})"],
+        [sys.executable, "-c", f"from {module} import {fn}; {fn}({rank}, {n}, {port}{tail})"],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env, cwd=root)
-        for rank in range(n_devices)]
+        for rank in range(n)]
     outs = []
     try:
         for p in procs:
-            outs.append(p.communicate(timeout=DRYRUN_TIMEOUT_S)[0])
+            outs.append(p.communicate(timeout=timeout)[0])
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.communicate()
+    return [(p.returncode, out) for p, out in zip(procs, outs)]
+
+
+def dryrun_multichip(n_devices: int) -> None:
+    """Run one sharded train and solve step on an n_devices mesh of gloo CPU
+    processes (data x model, model = 2 when n is even): GP training with the
+    Gram's rows over 'model', the ScaSML rollout with the batch over 'data'.
+    Raises unless every process finishes with the same finite output."""
+    runs = run_gloo_world("scasml_gp_torch.parallel.sharded._dryrun_child", n_devices,
+                          DRYRUN_TIMEOUT_S)
     sums = set()
-    for rank, (p, out) in enumerate(zip(procs, outs)):
-        if p.returncode != 0 or f"OK rank={rank}" not in out:
+    for rank, (rc, out) in enumerate(runs):
+        if rc != 0 or f"OK rank={rank}" not in out:
             raise RuntimeError(f"dryrun_multichip: rank {rank} failed:\n{out}")
         sums.add(out.split("sum=")[1].split()[0])
     if len(sums) != 1:

@@ -72,6 +72,21 @@ def test_plain_matches_jax(problem, gname, want_grad, want_ops):
     _assert_same(got, want)
 
 
+@pytest.mark.parametrize("gname", list(GAMMAS))
+@pytest.mark.parametrize("want_grad,want_ops", FLAGS)
+def test_float64_plain_matches_jax(problem, gname, want_grad, want_ops):
+    """posterior_block with operand_dtype float64, the reference that the
+    kernel and the float32 plain version are held to at large d: every
+    output in float64, within the float32 bar of the JAX package's."""
+    gamma = GAMMAS[gname]
+    want = jax_posterior_eval(*(jnp.asarray(a) for a in problem), gamma, D,
+                              want_grad=want_grad, want_ops=want_ops)
+    got = posterior_block(*_t(*problem), gamma, D, want_grad, want_ops,
+                          operand_dtype=torch.float64)
+    assert all(a is None or a.dtype == torch.float64 for a in got)
+    _assert_same(got, want)
+
+
 @pytest.mark.parametrize("want_grad,want_ops", FLAGS)
 def test_plain_matches_pallas_interpret(problem, want_grad, want_ops):
     from scripts.pallas_posterior import posterior_eval_fused
