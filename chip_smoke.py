@@ -16,8 +16,10 @@ Phases, each printing its own lines:
   4. main:    the bench workload on the port: GradDependentNonlinear d=20,
               GP trained on 1000 + 200 seeded points (gn_steps=20), then
               ScaSML(eq, gp).u_solve(2, 2, x_test) on 1000 + 200 test points;
-              train and solve times, rel-L2 of GP and ScaSML, and the kernel
-              launches of one u_solve.
+              train and solve times (the solve replays its captured CUDA
+              graph), rel-L2 of GP and ScaSML, and the kernel launches of
+              one u_solve (its first call warms up, the counted one
+              captures).
   5. runner:  the flagless runner path users run (python -m
               scasml_gp_torch.harness.runner --variant full_history): the
               runner's tune (20 candidates, each judged by 3 full-history
@@ -77,11 +79,12 @@ Phases, each printing its own lines:
               predict and gradient within 2e-4 of the direct calls, HTTP
               equal to Python, two identical /solve requests bitwise equal,
               stats() counted; p50 latency per endpoint and bucket over 20
-              requests.
+              requests (warmup captures every (endpoint, bucket); /solve
+              also with its rollouts eager).
   11. debug:  a full-history u_solve(2, 2, M=3) with debug_checks=True
               bitwise equal to the unchecked one under the same seed, a NaN
               input row raising the port's error naming an aten op, and the
-              slowdown.
+              slowdown (against the unchecked solve's graph replay).
   12. mesh:   (a) a world of one process over NCCL with a 1 x 1 mesh:
               parallel.make_sharded_train_and_solve on the bench workload
               (quadrature ScaSML (2, 2), 20 Newton steps) bitwise equal to
@@ -119,6 +122,14 @@ Phases, each printing its own lines:
               call of each that its run launched (grad+ops, which it does
               not launch, on the gradient call's rows; 2e-4, two launches
               bitwise equal), both also against a float64 posterior_block.
+  16. graphs: the captured rollouts (scasml_gp_torch/picard/graphs.py)
+              against eager ones at phase 4's quadrature and phase 5's
+              full-history solve: the capture call's time and memory, CUDA-
+              event medians of the eager and the graphed solve, both idle
+              shares and peak memory (measure.profile_solve), the graphed
+              output against the eager one from the same generator state
+              (bitwise, or within 1e-6 relative), kernel launches a graphed
+              solve (20 and 6).
 Kernel times are CUDA-event times of calls back to back as a caller sees
 them (``ms`` and ``plain_ms``, the host's launch cost included, as in every
 earlier version of this script) and with the stream held until every call is
@@ -134,6 +145,7 @@ The line before the last is the kernels' JSON record; the last line is
 is no CPU path.  Imports neither JAX nor the JAX package.
 """
 
+import contextlib
 import json
 import math
 import os
@@ -366,7 +378,7 @@ def runner_phase(dev, smi):
                         warmup=1)
     print(f"[runner] {smi}; ScaSMLFullHistory u_solve(2, 2, M=3) on "
           f"{x_test.shape[0]} points: {solve_ms:.3f} ms median of 5 "
-          f"(CUDA events)", flush=True)
+          f"(CUDA events, captured graph)", flush=True)
     print(f"[runner] kernel launches: tune {by_flags_str(tune_launches)}, "
           f"run {by_flags_str(run_launches)}, one u_solve "
           f"{by_flags_str(solve_launches)}", flush=True)
@@ -1180,17 +1192,18 @@ def serve_phase(dev, smi, gp):
     for b in SERVE_BUCKETS:
         x_np = gp.equation.geometry().sample_domain(gen, b, device=dev).cpu().numpy()
         p50 = {}
-        for ep in endpoints:
-            fn = getattr(server, ep)
+        for ep in endpoints + ("solve eager",):
+            fn = getattr(server, ep.split()[0])
             times = []
-            for _ in range(SERVE_REPEATS):
-                t0 = time.perf_counter()
-                fn(x_np)  # returns numpy: the device has finished
-                times.append(1e3 * (time.perf_counter() - t0))
+            with server.scasml._eager() if ep == "solve eager" else contextlib.nullcontext():
+                for _ in range(SERVE_REPEATS):
+                    t0 = time.perf_counter()
+                    fn(x_np)  # returns numpy: the device has finished
+                    times.append(1e3 * (time.perf_counter() - t0))
             p50[ep] = statistics.median(times)
         print(f"[serve] {smi}; bucket {b}: p50 over {SERVE_REPEATS} requests (host clock, "
-              "Python endpoint): " + ", ".join(f"{ep} {v:.3f} ms" for ep, v in p50.items()),
-              flush=True)
+              "Python endpoint; captured graphs, and /solve's rollouts eager): "
+              + ", ".join(f"{ep} {v:.3f} ms" for ep, v in p50.items()), flush=True)
     return launches
 
 
@@ -1208,7 +1221,8 @@ def debug_phase(dev, smi, gp):
                for k in (False, True)}
     outs, secs, launches = {}, {}, {}
     for k, sca in solvers.items():
-        sca.u_solve(2, 2, x, M=3)  # warm-up
+        for _ in range(2):  # the unchecked solver captures on its second call
+            sca.u_solve(2, 2, x, M=3)
         sca.gen.manual_seed(5)
         torch.cuda.synchronize()
         fp.reset_launches()
@@ -1693,6 +1707,84 @@ def drivers_phase(smi):
     return records, {f: campaign_launches.get(f, 0) for f in MAIN_SPECS}
 
 
+# Phase 16.  The captured rollouts (picard/graphs.py) against eager ones.
+GRAPH_SEED = 21
+GRAPH_TOL = 1e-6  # relative, if a replay is not bitwise the eager rollout
+
+
+def graphs_phase(dev, smi, bench_gp, bench_x, tuned_gp):
+    """Phase 16: at phase 4's and phase 5's solves, the eager rollouts
+    against the captured graphs: capture time, CUDA-event medians, idle
+    shares and peak memory (measure.profile_solve), the graphed output
+    against the eager one from the same generator state, launches per
+    replay.  (The tune's A/B: python -m scasml_gp_torch.measure --parts
+    tune.)"""
+    import torch
+
+    import scasml_gp_torch as port
+    from scasml_gp_torch.gp import fused_posterior as fp
+    from scasml_gp_torch.measure import event_ms, profile_solve
+
+    eq = tuned_gp.equation
+    fh_x = torch.cat(eq.generate_test_data(
+        N_TEST_DOM, N_TEST_BDY, torch.Generator(device=dev).manual_seed(1235), device=dev))
+    cases = (
+        ("quadrature u_solve(2, 2), bench GP", port.ScaSML(bench_gp.equation, bench_gp, seed=7),
+         lambda s: s.u_solve(2, 2, bench_x), sum(EXPECTED_LAUNCHES.values())),
+        ("full-history u_solve(2, 2, M=3), tuned GP",
+         port.ScaSMLFullHistory(eq, tuned_gp, seed=7),
+         lambda s: s.u_solve(2, 2, fh_x, M=3), sum(EXPECTED_FH_SOLVE_LAUNCHES.values())),
+    )
+    for tag, sca, solve, per_solve in cases:
+        check(sca.eager_reason() is None, f"{tag}: eager ({sca.eager_reason()})")
+        with sca._eager():
+            eager = profile_solve(f"{tag} eager", lambda: solve(sca))
+            eager_ms = event_ms(lambda: solve(sca), k=7, inner=1, warmup=1)
+            sca.gen.manual_seed(GRAPH_SEED)
+            want = solve(sca)
+        solve(sca)  # the graphs' warm-up call: eager
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reserved = torch.cuda.memory_reserved(dev)
+        base = torch.cuda.memory_allocated(dev)
+        sca.gen.manual_seed(GRAPH_SEED)
+        t0 = time.perf_counter()
+        got = solve(sca)
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        capture_peak = (torch.cuda.max_memory_allocated(dev) - base) / 2**20
+        pool_mib = (torch.cuda.memory_reserved(dev) - reserved) / 2**20
+        fp.reset_launches()
+        sca.gen.manual_seed(GRAPH_SEED)
+        again = solve(sca)
+        torch.cuda.synchronize()
+        launches = fp.launches
+        in_graph = sum(sca._graphs.launches_by_key().values())
+        graphed = profile_solve(f"{tag} graphed", lambda: solve(sca))
+        graphed_ms = event_ms(lambda: solve(sca), k=7, inner=1, warmup=1)
+        diff = max(float((got - want).abs().max()), float((again - want).abs().max()))
+        rel = diff / float(want.abs().max())
+        check(sca._graphs.captures >= 1 and sca._graphs.replays >= 2,
+              f"{tag}: {sca._graphs.captures} captures, {sca._graphs.replays} replays")
+        check(rel <= GRAPH_TOL, f"{tag}: graphed differs from eager by {rel:.3g} relative")
+        check(launches == per_solve, f"{tag}: {launches} launches a graphed solve, "
+              f"expected {per_solve}")
+        agree = ("bitwise equal" if diff == 0.0 else
+                 f"NOT bitwise: within {rel:.3g} relative (bar {GRAPH_TOL})")
+        print(f"[graphs] {smi}; {tag} on {want.shape[0]} points: capture call "
+              f"{1e3 * capture_s:.3f} ms (host clock, synchronized; peak allocated "
+              f"+{capture_peak:.1f} MiB, pool reserved +{pool_mib:.1f} MiB); eager "
+              f"{eager_ms:.3f} ms, graphed {graphed_ms:.3f} ms ({eager_ms / graphed_ms:.2f}x; "
+              f"CUDA events, median of 7); idle share eager "
+              f"{eager['device_idle_share']:.3f}, graphed {graphed['device_idle_share']:.3f}; "
+              f"peak allocated over what the call found: eager "
+              f"+{eager['peak_over_base_mib']:.1f} MiB, replay "
+              f"+{graphed['peak_over_base_mib']:.1f} MiB; graphed vs eager from one "
+              "generator state: "
+              f"{agree}; kernel launches a solve {launches}, {in_graph} of them in the "
+              f"graph", flush=True)
+
+
 def main():
     import torch
 
@@ -1824,7 +1916,7 @@ def main():
                         inner=1, warmup=1)
     print(f"[main] GP rel-L2 {e_gp:.6f}; ScaSML rel-L2 {e_sca:.6f}", flush=True)
     print(f"[main] ScaSML u_solve(2, 2) on {x_test.shape[0]} points: "
-          f"{solve_ms:.2f} ms median of 5", flush=True)
+          f"{solve_ms:.2f} ms median of 5 (captured graph)", flush=True)
     print(f"[main] kernel launches in one u_solve: {launches} "
           f"{by_flags_str(by_flags)}", flush=True)
     check(launches > 0, "the main path launched no kernel")
@@ -1868,6 +1960,9 @@ def main():
 
     # 15. the experiment drivers, and the kernel at F = 251
     wide, campaign_launches = drivers_phase(smi)
+
+    # 16. the captured rollouts against eager ones
+    graphs_phase(dev, smi, gp, x_test, tuned_gp)
 
     kernels = []
     for f, (caller, _) in MAIN_SPECS.items():

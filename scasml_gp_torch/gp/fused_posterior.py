@@ -25,7 +25,8 @@ rounds x and y for the pair statistics and keeps them unrounded for the
 gradient's contractions.
 
 ``fused_posterior`` launches the kernel for CUDA tensors and counts the
-launch in ``launches``.  For CPU tensors it runs ``stacked_posterior``, the
+launch in ``launches`` (a captured rollout's launches are counted on each
+replay: picard/graphs.py).  For CPU tensors it runs ``stacked_posterior``, the
 same stacked computation in plain PyTorch.  There is no fallback between the
 two: a CUDA tensor launches the kernel or raises.  Under the debug NaN
 checks (utils/debug.py), which cannot see inside the kernel, it checks its
@@ -64,6 +65,39 @@ def reset_launches() -> None:
     launches = 0
     launches_by_flags.clear()
     bf16_launches_by_flags.clear()
+
+
+def launch_counts() -> tuple:
+    """A copy of the counters: (launches, by flags, bf16 by flags)."""
+    return launches, dict(launches_by_flags), dict(bf16_launches_by_flags)
+
+
+def take_launches_since(before: tuple) -> tuple:
+    """Put the counters back to ``before`` (a ``launch_counts``) and return
+    what was counted since, in the same form.  A CUDA-graph capture runs the
+    wrapper without launching the kernel; picard/graphs.py takes its counts
+    back here and adds them with ``add_launches`` on every replay."""
+    global launches
+    total, by_flags, bf16_by_flags = launch_counts()
+    delta = (total - before[0],
+             {k: v - before[1].get(k, 0) for k, v in by_flags.items()
+              if v != before[1].get(k, 0)},
+             {k: v - before[2].get(k, 0) for k, v in bf16_by_flags.items()
+              if v != before[2].get(k, 0)})
+    launches = before[0]
+    for counts, old in ((launches_by_flags, before[1]), (bf16_launches_by_flags, before[2])):
+        counts.clear()
+        counts.update(old)
+    return delta
+
+
+def add_launches(delta: tuple) -> None:
+    """Count the launches ``delta`` (a ``take_launches_since``) once more."""
+    global launches
+    launches += delta[0]
+    for counts, extra in ((launches_by_flags, delta[1]), (bf16_launches_by_flags, delta[2])):
+        for k, v in extra.items():
+            counts[k] = counts.get(k, 0) + v
 
 
 class FusedInputs(NamedTuple):

@@ -46,7 +46,10 @@ class GPState:
         """The fused kernel's stacked inputs for ``operand_dtype`` (float32 or
         the bf16 variant's), or with a mesh of more than one 'model' rank
         this rank's slice of them; built on first use and cached (the
-        state's tensors are never modified in place)."""
+        state's tensors are never modified in place).  A captured rollout
+        (picard/graphs.py) only reads the cache: building it syncs the host
+        (``prepare_inputs`` reads gamma as floats), so the rollout's first,
+        eager call fills it."""
         from scasml_gp_torch.gp import fused_posterior as fp
 
         od = fp.operand_dtype_of(operand_dtype)

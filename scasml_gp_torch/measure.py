@@ -1,6 +1,6 @@
 """Measure the fused-posterior kernel and the ScaSML solve on one GPU.
 
-    python -m scasml_gp_torch.measure [--out FILE.json] [--parts kernel,splits,host,solves]
+    python -m scasml_gp_torch.measure [--out FILE.json] [--parts kernel,splits,host,solves,tune]
 
 1. kernel: CUDA-event time of each specialisation of the kernel against a GP
    trained on 1000 + 200 rows, at d=20 (the bench GP) and at d=100 (F = 101,
@@ -19,10 +19,17 @@
    64-row call of each specialisation against the bench GP, whose device
    time (also given) is a few microseconds.
 4. solves: torch.profiler over one warm ScaSML u_solve(2, 2) and one warm
-   ScaSMLFullHistory u_solve(2, 2, M=3) on 1200 points; device time by
-   kernel name, and the device's idle share of the solve's wall time
-   (median of 21 solves with the profiler off); peak device memory
-   allocated by the GP train and by each u_solve.
+   ScaSMLFullHistory u_solve(2, 2, M=3) on 1200 points, each run eagerly
+   (the solver's ``_eager()``) and as captured CUDA graphs
+   (picard/graphs.py); device time by kernel name, and the device's idle
+   share of the solve's wall time (median of 21 solves with the profiler
+   off); peak device memory allocated by the GP train, by an eager u_solve
+   and by the call that captures the graphs.
+5. tune: the flagless d=20 runner's tune (20 candidates, each judged by 3
+   full-history ScaSML rollouts; chip_smoke.py phase 5) with every solver
+   eager and with captured graphs, in turns (eager, graphed, graphed,
+   eager): host-clock seconds and the device memory allocated over the
+   start, peak and after.
 Needs a CUDA device; prints one line per measurement and writes all of them
 to --out as JSON.  Parts 3 and 4 use only the package's public entry points
 and ``fused_posterior(x, fused_inputs, want_grad, want_ops)``, so this file
@@ -33,6 +40,7 @@ PYTHONPATH and run this file with ``python -P``) for an A/B in one call.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import statistics
@@ -62,7 +70,7 @@ MAIN_SHAPES = (
     ("Sine grad+ops", 100, 1200, (True, True)),
 )
 SPLITS = (1, 2, 3, 4, 5, 6, 7, 8, 10, 12, 14, 19)
-PARTS = ("kernel", "splits", "host", "solves")
+PARTS = ("kernel", "splits", "host", "solves", "tune")
 HOST_ROWS = 64
 SOLVE_REPS = 21
 FP32_PEAK = 67e12  # H100 SXM float32 outside the tensor cores, at 700 W
@@ -122,16 +130,21 @@ def event_ms(fn, k=7, inner=10, warmup=2, device_bound=False):
     return statistics.median(samples)
 
 
-def profile_solve(name, solve):
-    """Peak memory of a first call, then the wall time (median of
-    SOLVE_REPS, profiler off) and a torch.profiler breakdown of one warm
-    call of ``solve``."""
+def profile_solve(name, solve, warm=0):
+    """After ``warm`` untimed calls, peak memory of a call, then the wall
+    time (median of SOLVE_REPS, profiler off) and a torch.profiler
+    breakdown of one warm call of ``solve``."""
     dev = torch.device("cuda", 0)
+    for _ in range(warm):
+        solve()
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev) / 2**20
     solve()
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated(dev) / 2**20
-    print(f"[memory] {name} peak allocated {peak:.1f} MiB", flush=True)
+    print(f"[memory] {name} peak allocated {peak:.1f} MiB, {peak - base:.1f} MiB over "
+          "what was allocated before the call", flush=True)
     walls = []
     for _ in range(SOLVE_REPS):
         t0 = time.perf_counter()
@@ -156,7 +169,8 @@ def profile_solve(name, solve):
     busy = sum(r["device_ms"] for r in rows)
     # both the main kernel and, where a call splits, fused_posterior_reduce
     kern = sum(r["device_ms"] for r in rows if "fused_posterior" in r["name"])
-    out = {"peak_mib": peak, "wall_ms_median": wall_ms, "wall_ms_all": walls,
+    out = {"peak_mib": peak, "peak_over_base_mib": peak - base,
+           "wall_ms_median": wall_ms, "wall_ms_all": walls,
            "device_busy_ms": busy,
            "fused_posterior_ms": kern,
            "device_launches": sum(r["count"] for r in rows),
@@ -170,6 +184,70 @@ def profile_solve(name, solve):
         print(f"[profile] {r['device_ms']:.4f} ms  x{r['count']}  {r['name'][:90]}",
               flush=True)
     return out
+
+
+def profile_solves(eq, gp, x_test) -> dict:
+    """``profile_solve`` of the quadrature and the full-history u_solve,
+    eager and graphed: keys profile[_full_history][_graphed]."""
+    out = {}
+    for key, name, solver, solve in (
+            ("profile", "u_solve(2, 2)", port.ScaSML(eq, gp, seed=7),
+             lambda s: s.u_solve(2, 2, x_test)),
+            ("profile_full_history", "full-history u_solve(2, 2, M=3)",
+             port.ScaSMLFullHistory(eq, gp, seed=7), lambda s: s.u_solve(2, 2, x_test, M=3))):
+        if not hasattr(solver, "_eager"):  # a checkout from before the graphs
+            out[key] = profile_solve(name, lambda: solve(solver))
+            continue
+        with solver._eager():
+            out[key] = profile_solve(f"{name} eager", lambda: solve(solver))
+        # the first call warms the caches, the measured one captures
+        out[f"{key}_graphed"] = profile_solve(f"{name} graphed", lambda: solve(solver),
+                                              warm=1)
+    return out
+
+
+@contextlib.contextmanager
+def eager_solvers():
+    """Every Picard solver eager inside the block (the tuner's judge is a
+    solver of its own); a checkout from before the graphs is eager anyway."""
+    from scasml_gp_torch.picard.mlp import _PicardBase
+
+    graphed = getattr(_PicardBase, "eager_reason", None)
+    if graphed is None:
+        yield
+        return
+    _PicardBase.eager_reason = lambda self: "eager on request"
+    try:
+        yield
+    finally:
+        _PicardBase.eager_reason = graphed
+
+
+def tune_ab(dev) -> list:
+    """The flagless d=20 tune, eager and graphed in turns (part 5)."""
+    from scasml_gp_torch.harness import runner
+
+    config = port.RunConfig(
+        dim=D, num_domain=N_DOM, num_boundary=N_BDY, test_domain=1000, test_boundary=200,
+        seed=1234, harness="SimpleUniform",
+        picard=port.PicardConfig(variant="full_history", n=2, rho=2, M=3))
+    rows = []
+    for mode in ("eager", "graphed", "graphed", "eager"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        with eager_solvers() if mode == "eager" else contextlib.nullcontext():
+            runner.tuned_config(config, dev)
+        torch.cuda.synchronize()
+        row = {"mode": mode, "s": time.perf_counter() - t0,
+               "peak_mib": (torch.cuda.max_memory_allocated(dev) - before) / 2**20,
+               "after_mib": (torch.cuda.memory_allocated(dev) - before) / 2**20}
+        rows.append(row)
+        print(f"[tune] {mode}: 20 candidates x 3 judge rollouts in {row['s']:.3f} s "
+              f"(host clock, synchronized); allocated over the start: peak "
+              f"+{row['peak_mib']:.1f} MiB, after +{row['after_mib']:.1f} MiB", flush=True)
+    return rows
 
 
 def kernel_scaling(eq, fused, d, dev):
@@ -297,11 +375,9 @@ def main(argv=None):
         xt_dom, xt_bdy = eq.generate_test_data(
             1000, 200, torch.Generator(device=dev).manual_seed(42), device=dev)
         x_test = torch.cat([xt_dom, xt_bdy])
-        res["profile"] = profile_solve(
-            "u_solve(2, 2)", lambda s=port.ScaSML(eq, gp, seed=7): s.u_solve(2, 2, x_test))
-        res["profile_full_history"] = profile_solve(
-            "full-history u_solve(2, 2, M=3)",
-            lambda s=port.ScaSMLFullHistory(eq, gp, seed=7): s.u_solve(2, 2, x_test, M=3))
+        res.update(profile_solves(eq, gp, x_test))
+    if "tune" in parts:
+        res["tune"] = tune_ab(dev)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as fh:

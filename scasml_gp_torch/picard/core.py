@@ -22,10 +22,16 @@ the path dtype, carries the z denominator delta_t as the reference does and
 quantizes every level's output through float16.  torch cannot replay JAX's
 threefry draws, so both match the JAX package in distribution, and their
 control flow exactly.
+
+On a CUDA device the solvers replay each schedule's rollout as a captured
+CUDA graph (picard/graphs.py).  Whatever a rollout reads from the host (the
+quadrature rules, the low-precision normals' constants) is therefore made on
+the device on its first, eager call and kept.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, NamedTuple, Optional
 
 import torch
@@ -81,6 +87,17 @@ class ShardedDraws(NamedTuple):
 _MANTISSA = {torch.float16: 10, torch.bfloat16: 7}
 
 
+@functools.lru_cache(maxsize=None)
+def _lowp_constants(dtype: torch.dtype, device: torch.device):
+    """(lo, span, sqrt 2) of ``_lowp_normal`` in ``dtype`` on ``device``,
+    made once: a captured rollout (picard/graphs.py) may copy nothing from
+    the host, so the first, eager call of a schedule makes them."""
+    lo = torch.nextafter(torch.tensor(-1.0, dtype=dtype), torch.tensor(0.0, dtype=dtype))
+    span = torch.tensor(1.0, dtype=dtype) - lo  # rounds to 2 in the dtype, as in JAX
+    sqrt2 = torch.tensor(2.0 ** 0.5, dtype=dtype)
+    return lo.to(device), span.to(device), sqrt2.to(device)
+
+
 def _lowp_normal(shape, generator=None, device=None, dtype=torch.float16):
     """Standard normals in float16 or bfloat16 with the law of
     ``jax.random.normal`` in that dtype: sqrt(2) erfinv(u), with u uniform on
@@ -92,12 +109,10 @@ def _lowp_normal(shape, generator=None, device=None, dtype=torch.float16):
     package's."""
     levels = 2 ** _MANTISSA[dtype]
     m = torch.randint(0, levels, tuple(shape), generator=generator, device=device)
-    lo = torch.nextafter(torch.tensor(-1.0, dtype=dtype), torch.tensor(0.0, dtype=dtype))
-    span = torch.tensor(1.0, dtype=dtype) - lo  # rounds to 2 in the dtype, as in JAX
-    u = (m.to(torch.float32) / levels).to(dtype) * span.to(device) + lo.to(device)
-    u = torch.maximum(u, lo.to(device))
-    return torch.erfinv(u.to(torch.float32)).to(dtype) * torch.tensor(
-        2.0 ** 0.5, dtype=dtype, device=device)
+    lo, span, sqrt2 = _lowp_constants(dtype, m.device)
+    u = (m.to(torch.float32) / levels).to(dtype) * span + lo
+    u = torch.maximum(u, lo)
+    return torch.erfinv(u.to(torch.float32)).to(dtype) * sqrt2
 
 
 def _draw(sample, gen, shape, **kw) -> torch.Tensor:
@@ -142,7 +157,10 @@ def _terminal_pass(model: PicardModel, params, x, t, gen: torch.Generator,
     B, dim, dev = x.shape[0], model.dim, x.device
     pd = DTYPES[model.path_dtype]
     if model.terminal_crn is not False:
-        # frozen per shape: True is the reference's seed 0, an int another
+        # frozen per shape: True is the reference's seed 0, an int another.
+        # A generator made inside the rollout cannot be registered with a
+        # captured graph, so solvers with this probe run eagerly
+        # (picard/graphs.py).
         seed = 0 if model.terminal_crn is True else int(model.terminal_crn)
         frozen = torch.Generator(device=dev).manual_seed(seed)
         gen = gen._replace(gen=frozen) if isinstance(gen, ShardedDraws) else frozen
@@ -194,6 +212,15 @@ def build_quadrature_uz(model: PicardModel, n: int, rho: int,
     Mf, Mg, Q, c, w = tables
     T, dim = model.T, model.dim
     pd = DTYPES[model.path_dtype]
+    quad = {}  # (q, device) -> the q-point rule's nodes and weights there
+
+    def rule(q: int, dev):
+        # made on the first, eager call: a captured rollout copies nothing
+        # from the host (picard/graphs.py)
+        if (q, dev) not in quad:
+            quad[q, dev] = tuple(torch.as_tensor(a[:q, q - 1], dtype=torch.float32,
+                                                 device=dev) for a in (c, w))
+        return quad[q, dev]
 
     def uz(lvl: int, x_t, gen, params, want_var: bool = False):
         B, dev = x_t.shape[0], x_t.device
@@ -214,8 +241,7 @@ def build_quadrature_uz(model: PicardModel, n: int, rho: int,
         for l in range(lvl):
             q = int(Q[rho - 1, lvl - l - 1])
             mf = int(Mf[rho - 1, lvl - l - 1])
-            nodes = torch.as_tensor(c[:q, q - 1], dtype=torch.float32, device=dev)
-            weights = torch.as_tensor(w[:q, q - 1], dtype=torch.float32, device=dev)
+            nodes, weights = rule(q, dev)
             cloc = t[:, None] + (T - t)[:, None] * nodes[None, :] / T  # (B, q)
             wloc = (T - t)[:, None] * weights[None, :] / T             # (B, q)
             dts = torch.diff(torch.cat([t[:, None], cloc], dim=1), dim=1)

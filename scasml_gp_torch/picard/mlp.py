@@ -10,16 +10,26 @@ axis: each rank rolls out its rows, drawing every node's numbers for the
 whole batch and keeping its own (picard/core.py ``ShardedDraws``), and the
 ranks gather the outputs.  Every rank then holds the output of the unsplit
 rollout at the same seed, and the generators of all ranks stay in step.
+
+On a CUDA device ``_run`` replays each schedule's rollout as a captured CUDA
+graph, one per batch-chunk shape (picard/graphs.py, the counterpart of the
+JAX package's ``jax.jit`` of ``_get_fn``'s rollout).  ``eager_reason`` names
+the paths that stay eager: CPU tensors, ``debug_checks``, a mesh of more than
+one rank and the parity probes.  ``_eager()`` runs a solver eagerly on the
+card for an A/B against its graphs.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
 from scasml_gp_torch.config import PrecisionPolicy
 from scasml_gp_torch.equations.base import Equation
+from scasml_gp_torch.picard import graphs
 from scasml_gp_torch.picard.core import (
     PicardModel,
     ShardedDraws,
@@ -80,6 +90,9 @@ class _PicardBase:
         # the reference-estimator probe (core.PicardModel.reference_semantics)
         self.reference_semantics = reference_semantics
         self._cache: Dict[Tuple, Callable] = {}
+        # the captured rollouts of this solver (picard/graphs.py)
+        self._graphs = graphs.GraphCache()
+        self._eager_only = False
 
     def _params(self):
         return None
@@ -115,11 +128,33 @@ class _PicardBase:
             self._cache[schedule_key] = fn
         return fn
 
+    def eager_reason(self) -> Optional[str]:
+        """Why this solver's rollouts run eagerly, or None when ``_run``
+        replays captured graphs (picard/graphs.py)."""
+        if self._eager_only:
+            return "eager on request (_eager)"
+        return graphs.eager_reason(self.device, self.debug_checks, (self.mesh,),
+                                   parity=self.terminal_crn is not False
+                                   or self.reference_semantics)
+
+    @contextlib.contextmanager
+    def _eager(self):
+        """Run this solver's rollouts eagerly inside the block: the A/B of
+        chip_smoke.py and the CUDA tests against the captured graphs."""
+        self._eager_only = True
+        try:
+            yield self
+        finally:
+            self._eager_only = False
+
     def _run(self, schedule_key: Tuple, x_t) -> torch.Tensor:
-        """Run the rollout, chunking the batch (padded to whole chunks)."""
+        """Run the rollout, chunking the batch (padded to whole chunks); on
+        the card through the captured graphs, one per chunk shape."""
         x_t = torch.as_tensor(x_t, dtype=torch.float32, device=self.device)
         fn = self._get_fn(schedule_key)
         params = self._params()
+        if self.eager_reason() is None:
+            fn = functools.partial(self._graphs, schedule_key, fn)
         B = x_t.shape[0]
         chunk = self.batch_chunk
         if chunk is None or B <= chunk:

@@ -23,6 +23,10 @@ ladder.  lambda is a statistic over the whole batch: ``_run`` joins the
 batch chunks, and on a mesh gathers the ranks' rows, before ``_guarded_u``
 sees them, so every rank computes the same lambda and takes the same ladder
 steps.
+
+On the card each rollout, the probes' included, replays a captured CUDA
+graph (picard/graphs.py); the guard's statistics are read on the host after
+the replays (``_guarded_u``, ``_measured_probe_ratio``).
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ from scasml_gp_torch.picard.core import (
     build_full_history_uz,
     build_quadrature_uz,
 )
+from scasml_gp_torch.picard import graphs
 from scasml_gp_torch.picard.mlp import _PicardBase
 from scasml_gp_torch.picard.schedule import (
     approx_parameters,
@@ -66,6 +71,12 @@ class _ScaSMLBase(_PicardBase):
         )
         self.last_lambda = None  # shrink factor of the latest u_solve
         self.last_ladder = []    # schedule candidates the latest u_solve tried
+
+    def eager_reason(self):
+        """As the base's, and eager as well over a GP whose posterior runs
+        collectives (a mesh of more than one rank) or is a parity mode."""
+        return super().eager_reason() or graphs.eager_reason(
+            self.device, meshes=(self.GP.mesh,), parity=self.GP.parity)
 
     def _params(self):
         if self.GP.state is None:

@@ -6,12 +6,15 @@ GradDependentNonlinear d=100, batch 1200, (n, M) = (3, 4) by default:
 
     python -m scasml_gp_torch.scripts.throughput [--d 100] [--device cuda]
 
-One warm-up call, then ``--reps`` calls timed on the host clock with one
+Two warm-up calls (on the card the first runs eagerly and the second
+captures the rollout as a CUDA graph, which the timed calls replay:
+picard/graphs.py), then ``--reps`` calls timed on the host clock with one
 ``torch.cuda.synchronize()`` after the last.  ``evals_per_call`` is
 ``count_evaluations_full_history(n, M)`` per batch row.  Under ``torchrun``
 with more than one rank, each rank measures its own device and then the
 rollout with the batch split over a ('data' = world) mesh
-(``parallel.make_sharded_picard_solve``); rank 0 prints the JSON.  With one
+(``parallel.make_sharded_picard_solve``, eager: its gather is a collective);
+rank 0 prints the JSON.  With one
 process the sharded leg is left out, as the JAX script leaves it out on one
 device.
 
@@ -35,14 +38,15 @@ from scasml_gp_torch.picard.schedule import count_evaluations_full_history
 from scasml_gp_torch.utils.device import resolve_device
 
 
-def _timed_calls(fn, x_t, gen, reps: int) -> float:
-    """Seconds per call of ``fn(x_t, gen, None)`` over ``reps`` calls after
-    one warm-up, the device drained before the clock stops."""
-    out = fn(x_t, gen, None)
+def _timed_calls(call, reps: int) -> float:
+    """Seconds per call of ``call()`` over ``reps`` calls after two warm-up
+    calls, the device drained before the clock stops."""
+    for _ in range(2):
+        out = call()
     _sync(out)
     t0 = time.perf_counter()
     for _ in range(reps):
-        out = fn(x_t, gen, None)
+        out = call()
     _sync(out)
     return (time.perf_counter() - t0) / reps
 
@@ -71,14 +75,14 @@ def main(argv=None):
           f" (rank {rank} of {n_ranks})", file=sys.stderr)
 
     eq = GradDependentNonlinear(n_input=args.d + 1)
-    solver = MLPFullHistory(eq, device=dev)
+    solver = MLPFullHistory(eq, device=dev, seed=1)
     x_t = eq.geometry().sample_domain(torch.Generator(device=dev).manual_seed(0),
                                       args.batch, device=dev)
-    gen = torch.Generator(device=dev).manual_seed(1)
     nevals = count_evaluations_full_history(args.n, args.M)
 
-    # one device, steady state
-    t_single = _timed_calls(solver._get_fn((args.n, args.M)), x_t, gen, args.reps)
+    # one device, steady state: the solver's entry point
+    t_single = _timed_calls(lambda: solver.uz_solve(args.n, None, x_t, M=args.M),
+                            args.reps)
     result = {
         "d": args.d, "batch": args.batch, "n": args.n, "M": args.M,
         "evals_per_call": int(nevals),
@@ -90,7 +94,8 @@ def main(argv=None):
     if n_ranks > 1:
         mesh = make_mesh(data=n_ranks, model=1)
         sharded = make_sharded_picard_solve(solver._build((args.n, args.M)), mesh)
-        t_multi = _timed_calls(sharded, x_t, gen, args.reps)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        t_multi = _timed_calls(lambda: sharded(x_t, gen, None), args.reps)
         result["n_devices"] = n_ranks
         result["sharded_s"] = t_multi
         result["scaling_efficiency"] = t_single / (t_multi * n_ranks)

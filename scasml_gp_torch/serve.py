@@ -17,7 +17,11 @@ Port of ``scasml_gp_tpu/serve.py``:
 
     python -m scasml_gp_torch.serve <checkpoint> --warmup
 
-Requests run eagerly on the surrogate's device.
+On a CUDA device every (endpoint, bucket) runs as a captured CUDA graph
+(picard/graphs.py), as the JAX server compiles one program per bucket: a
+/solve through its solver's graphs, /predict and /gradient through the
+server's own, keyed by (endpoint, bucket) within the GP's trained state.
+``warmup`` captures them before the first request.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ import torch
 
 from scasml_gp_torch.config import GPConfig
 from scasml_gp_torch.gp.state import GPState, load_state, save_state
+from scasml_gp_torch.picard import graphs
 
 
 def save_surrogate(path: str, gp) -> None:
@@ -123,6 +128,8 @@ class SurrogateServer:
         self.rows = 0
         self.endpoint_seconds = {}
         self._lock = threading.Lock()
+        # /predict and /gradient captured per (endpoint, bucket) on the card
+        self._graphs = graphs.GraphCache()
 
     def _run_bucketed(self, endpoint, fn, x, out_cols):
         x = np.asarray(x, np.float32)
@@ -149,14 +156,29 @@ class SurrogateServer:
                 self.endpoint_seconds.get(endpoint, 0.0) + time.perf_counter() - t0)
         return out
 
+    def _posterior(self, endpoint, fn):
+        """``fn(chunk)`` for ``_run_bucketed``, through the captured graphs
+        where the GP's posterior can be captured."""
+        gp = self.gp
+
+        def run(chunk, real):
+            if graphs.eager_reason(chunk.device, meshes=(gp.mesh,), parity=gp.parity):
+                return fn(chunk)
+            return self._graphs((endpoint,), lambda c, gen, state: fn(c), chunk,
+                                None, gp.state)
+
+        return run
+
     def predict(self, x) -> np.ndarray:
         """GP posterior mean, (n, 1)."""
-        return self._run_bucketed("predict", lambda c, real: self.gp.predict(c), x, 1)
+        return self._run_bucketed("predict", self._posterior("predict", self.gp.predict),
+                                  x, 1)
 
     def gradient(self, x) -> np.ndarray:
         """GP posterior space-time gradient, (n, d+1)."""
-        return self._run_bucketed("gradient", lambda c, real: self.gp.compute_gradient(c),
-                                  x, self.gp.n_input)
+        return self._run_bucketed(
+            "gradient", self._posterior("gradient", self.gp.compute_gradient), x,
+            self.gp.n_input)
 
     def solve(self, x) -> np.ndarray:
         """ScaSML solve (the GP plus its Picard correction), (n, 1)."""
@@ -173,12 +195,16 @@ class SurrogateServer:
         return self._run_bucketed("solve", run, x, 1)
 
     def warmup(self, endpoints=("predict",)) -> None:
-        """One request of every bucket on each of ``endpoints``."""
+        """Requests of every bucket on each of ``endpoints``: one on the
+        CPU; two on the card, where the first fills the caches and the
+        second captures the (endpoint, bucket) graphs."""
+        calls = 2 if self.gp.device.type == "cuda" else 1
         for b in self.buckets:
             x = np.zeros((b, self.gp.n_input), np.float32)
             x[:, -1] = self.gp.T
             for ep in endpoints:
-                getattr(self, ep)(x)
+                for _ in range(calls):
+                    getattr(self, ep)(x)
 
     def stats(self) -> dict:
         return {

@@ -16,6 +16,7 @@ round the same operands to bf16 and sum exact float32 products.
 
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
@@ -373,3 +374,149 @@ def test_bf16_posterior_eval_through_the_gp(trained):
     u32 = fp.fused_posterior(x, st.fused_inputs(), True).u
     rel = float((u16 - u32).norm() / u32.norm())
     assert rel < 2e-2, rel
+
+
+# The captured rollouts (picard/graphs.py) on the bench equation at a small
+# width: a replay runs the eager rollout's kernels with the same Philox
+# offsets, so it gives the same bits from one generator state.
+
+@pytest.fixture(scope="module")
+def bench_gp():
+    """The bench workload's GP at d = D on the card, and 300 test points."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import scasml_gp_torch as port
+
+    dev = torch.device("cuda", 0)
+    eq = port.GradDependentNonlinear(n_input=D + 1)
+    gp = port.GPGradDependentNonlinear(eq, port.GPConfig(gn_steps=8), device=dev)
+    gp.GPsolver(*eq.generate_data(150, 40, torch.Generator(device=dev).manual_seed(0),
+                                  device=dev))
+    x = eq.geometry().sample_domain(torch.Generator(device=dev).manual_seed(1), 300,
+                                    device=dev)
+    return eq, gp, x
+
+
+def _solver(kind, eq, gp):
+    """A solver of ``kind`` on the bench GP, and its rollout call."""
+    import scasml_gp_torch as port
+
+    if kind == "quadrature":
+        return port.ScaSML(eq, gp, seed=3), lambda s, x: s.uz_solve(2, 2, x)
+    if kind == "mlp_quadrature":
+        return port.MLP(eq, device=gp.device, seed=3), lambda s, x: s.uz_solve(2, 2, x)
+    if kind == "mlp_full_history":
+        return (port.MLPFullHistory(eq, device=gp.device, seed=3),
+                lambda s, x: s.uz_solve(2, None, x, M=3))
+    # bf16 paths: the low-precision normals' constants inside the graph
+    precision = port.PrecisionPolicy(rollout="bfloat16") if kind.endswith("bf16") else None
+    return (port.ScaSMLFullHistory(eq, gp, seed=3, precision=precision),
+            lambda s, x: s.uz_solve(2, None, x, M=3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["quadrature", "full_history", "mlp_quadrature",
+                                  "mlp_full_history", "full_history_bf16"])
+def test_graphed_rollout_is_bitwise_eager(bench_gp, kind):
+    """Warm-up, capture and replays each equal the eager rollout from the
+    same generator state, after manual_seed(s) for two seeds; the generator
+    ends where an eager call leaves it; every replay counts the eager
+    call's kernel launches."""
+    eq, gp, x = bench_gp
+    sca, solve = _solver(kind, eq, gp)
+    assert sca.eager_reason() is None
+    for seed in (5, 11):
+        with sca._eager():
+            sca.gen.manual_seed(seed)
+            fp.reset_launches()
+            want = solve(sca, x)
+            torch.cuda.synchronize()
+            launches, state = dict(fp.launches_by_flags), sca.gen.get_state()
+        for _ in range(3):
+            sca.gen.manual_seed(seed)
+            fp.reset_launches()
+            got = solve(sca, x)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), float((got - want).abs().max())
+            assert fp.launches_by_flags == launches
+            assert torch.equal(sca.gen.get_state(), state)
+    assert sca._graphs.captures == 1 and sca._graphs.replays == 5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["quadrature", "full_history"])
+def test_guarded_solve_with_probes_is_bitwise_eager(bench_gp, variant):
+    """The variance guard's main rollout and its two half-sample probes
+    replay graphs; lambda, read on the host after the replays, and the
+    solve equal the eager ones from the same generator state."""
+    import scasml_gp_torch as port
+
+    eq, gp, x = bench_gp
+    if variant == "quadrature":
+        sca = port.ScaSML(eq, gp, seed=3, variance_guard=True)
+        solve = lambda: sca.u_solve(2, 2, x)  # noqa: E731
+    else:
+        sca = port.ScaSMLFullHistory(eq, gp, seed=3, variance_guard=True)
+        solve = lambda: sca.u_solve(2, None, x, M=4)  # noqa: E731
+    with sca._eager():
+        sca.gen.manual_seed(8)
+        want, lam = solve(), sca.last_lambda
+    for _ in range(3):
+        sca.gen.manual_seed(8)
+        assert torch.equal(solve(), want) and sca.last_lambda == lam
+    assert len(sca._graphs.captured_keys()) == 2  # the main tree and the probes'
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["quadrature", "full_history"])
+def test_graphs_follow_a_replaced_state(bench_gp, kind):
+    """A new trained state is captured anew: the graphed rollout equals the
+    new state's eager one, and the old state's graph is gone."""
+    eq, gp, x = bench_gp
+    sca, solve = _solver(kind, eq, gp)
+    for _ in range(3):
+        solve(sca, x)
+    old = gp.state
+    gp.state = dataclasses.replace(old, right_vector=0.5 * old.right_vector, _fused={})
+    try:
+        with sca._eager():
+            sca.gen.manual_seed(7)
+            want = solve(sca, x)
+        for _ in range(3):
+            sca.gen.manual_seed(7)
+            assert torch.equal(solve(sca, x), want)
+        assert sca._graphs.captures == 2 and len(sca._graphs.captured_keys()) == 1
+        assert sca._graphs._params is gp.state
+    finally:
+        gp.state = old
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sync", ["item", "host copy"])
+def test_capture_that_syncs_raises(bench_gp, sync):
+    """A rollout that waits for the device or copies from the host inside
+    the capture raises GraphCaptureError naming the line; it is never run
+    eagerly instead, and the next call tries the capture again."""
+    from scasml_gp_torch.picard.graphs import GraphCaptureError
+
+    eq, gp, x = bench_gp
+    sca, solve = _solver("full_history", eq, gp)
+    build = sca._build
+
+    def rollout(key):
+        fn = build(key)
+
+        def synced(x_t, gen, params):
+            out = fn(x_t, gen, params)
+            if sync == "item":
+                return out * float(out.abs().max())
+            return out * torch.as_tensor(np.array([2.0], np.float32), device=out.device)
+
+        return synced
+
+    sca._get_fn = rollout
+    solve(sca, x)  # the eager warm-up runs
+    for _ in range(2):
+        with pytest.raises(GraphCaptureError, match="float\\(out|torch.as_tensor\\(np.array"):
+            solve(sca, x)
+    assert sca._graphs.captures == 0 and sca._graphs.replays == 0

@@ -19,7 +19,8 @@ MODULES = ("scasml_gp_torch", "scasml_gp_torch.harness.runner",
            "scasml_gp_torch.parallel.sharded", "scasml_gp_torch.gp.parity",
            "scasml_gp_torch.scripts.run_all", "scasml_gp_torch.scripts.summarize_campaign",
            "scasml_gp_torch.scripts.throughput", "scasml_gp_torch.scripts.high_dim",
-           "scasml_gp_torch.scripts.stretch_d250", "*", "mesh child")
+           "scasml_gp_torch.scripts.stretch_d250", "scasml_gp_torch.picard.graphs",
+           "*", "mesh child")
 
 
 @pytest.mark.parametrize("module", MODULES)
