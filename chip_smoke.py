@@ -45,13 +45,17 @@ Phases, each printing its own lines:
               surrogates' feature blocks.
   7. fit-ml:  the runner's --fit-ml path at d=20 (runner.fitted_config: the
               4-candidate ridge grid, then the marginal-likelihood fit, 3
-              rounds of 6 restarts x 30 Adam steps, each candidate judged by
-              3 full-history ScaSML rollouts; then run() through
-              SimpleUniform, 1000 + 200 train and test points, seed 1234,
-              n = rho = 2, M = 3, into results/smoke_fitml/): grid, fit,
-              judge and round times, the NLML history, the candidate table,
-              the shipped config, kernel launches of grid, fit and run, and
-              rel-L2 of GP, MLP and SCaSML.
+              rounds of the 6 restarts batched, each a batched Newton train
+              and 30 batched Adam steps, replays of one CUDA graph from the
+              second round on; each candidate judged by 3 full-history
+              ScaSML rollouts; then run() through SimpleUniform, 1000 + 200
+              train and test points, seed 1234, n = rho = 2, M = 3, into
+              results/smoke_fitml/): grid, fit, judge, train and Adam round
+              times (the capture call's, CUDA events), the fit's peak
+              memory, the NLML history against an eager batched fit's from
+              the same inputs (bitwise), one capture a fit, the candidate
+              table, the shipped config, kernel launches of grid, fit and
+              run, and rel-L2 of GP, MLP and SCaSML.
   8. sweeps:  ConvergenceRate, InferenceScaling, SimpleScaling and
               ComputingBudget through run() with phase 5's tuned config
               (full history, M = 3, seed 1234, each harness's defaults,
@@ -678,9 +682,56 @@ def fit_ml_phase(dev, smi):
     def judge_timed(make):
         return lambda *a, **kw: timed("judge", make(*a, **kw))
 
+    # The fit's inputs (for the eager A/B below) and its peak memory.
+    fit_call = {}
+
+    def fit_recorded(fn):
+        def wrapper(*a, **kw):
+            fit_call.update(args=a, kwargs=kw)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            before = torch.cuda.memory_allocated(dev)
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            fit_call["peak_mib"] = torch.cuda.max_memory_allocated(dev) / 2**20
+            fit_call["over_mib"] = (torch.cuda.max_memory_allocated(dev) - before) / 2**20
+            return out
+        return wrapper
+
+    # Each batched Adam round (CUDA events: the capture call's host time is
+    # inside its round) and each capture (host clock, synchronized).
+    rounds, captures = [], []
+
+    def adam_timed(call):
+        def wrapper(self, theta, b):
+            kind = ("eager" if not (self.graphed and self.rounds > 0)
+                    else "capture" if self.graph is None else "replay")
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = call(self, theta, b)
+            end.record()
+            end.synchronize()
+            rounds.append((kind, start.elapsed_time(end)))
+            return out
+        return wrapper
+
+    def capture_timed(capture):
+        def wrapper(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = capture(*a, **kw)
+            torch.cuda.synchronize()
+            captures.append((time.perf_counter() - t0) * 1e3)
+            return out
+        return wrapper
+
     wrapped = [(runner, "tune_gp", timed, "grid"),
-               (runner, "fit_gp_marginal_likelihood", timed, "fit"),
-               (marginal, "_descend", timed, "adam"),
+               (runner, "fit_gp_marginal_likelihood",
+                lambda part, fn: timed(part, fit_recorded(fn)), "fit"),
+               (marginal, "_train_latents", timed, "trains"),
+               (marginal._MapAdam, "__call__", lambda part, fn: adam_timed(fn), "adam"),
+               (marginal, "_capture", lambda part, fn: capture_timed(fn), "capture"),
                (marginal, "scasml_judge", None, None)]
     originals = [getattr(owner, name) for owner, name, _, _ in wrapped]
     for owner, name, wrap, part in wrapped:
@@ -690,21 +741,42 @@ def fit_ml_phase(dev, smi):
     fp.reset_launches()
     try:
         config, fit = runner.fitted_config(config, dev)
+        torch.cuda.synchronize()
+        path_launches = dict(fp.launches_by_flags)
+        graphed_rounds, graphed_captures = list(rounds), list(captures)
+        fit_parts = {k: dict(v, launches=dict(v["launches"])) for k, v in parts.items()}
+        fit_memory = dict(fit_call)
+        # the same fit with the Adam steps eager, from the same inputs
+        del rounds[:]
+        with marginal._eager():
+            eager_fit = runner.fit_gp_marginal_likelihood(*fit_call["args"],
+                                                          **fit_call["kwargs"])
+        torch.cuda.synchronize()
+        eager_rounds = list(rounds)
     finally:
         for (owner, name, _, _), fn in zip(wrapped, originals):
             setattr(owner, name, fn)
-    torch.cuda.synchronize()
-    path_launches = dict(fp.launches_by_flags)
+    eager_fit_s = parts["fit"]["s"] - fit_parts["fit"]["s"]
+    parts = fit_parts  # fitted_config's own, without the eager A/B
     grid_s, fit_s = parts["grid"]["s"], parts["fit"]["s"]
-    judge_s, adam_s = parts["judge"]["s"], parts["adam"]["s"]
+    judge_s, trains_s = parts["judge"]["s"], parts["trains"]["s"]
+    adam_ms = [ms for _, ms in graphed_rounds]
     rounds_s = fit_s - judge_s
     print(f"[fit-ml] {smi}; grid ({GRID_CANDIDATES} candidates) {grid_s:.3f} s; "
           f"fit {fit_s:.3f} s = judge of {parts['judge']['calls']} candidates "
-          f"{judge_s:.3f} s + {FIT_ROUNDS} outer rounds {rounds_s:.3f} s, one round "
-          f"{rounds_s / FIT_ROUNDS:.3f} s = Adam {adam_s / FIT_ROUNDS:.3f} s "
-          f"({FIT_RESTARTS} x {FIT_STEPS} steps) + Newton trains and final NLML "
-          f"{(rounds_s - adam_s) / FIT_ROUNDS:.3f} s (host clock, synchronized)",
-          flush=True)
+          f"{judge_s:.3f} s + {FIT_ROUNDS} outer rounds {rounds_s:.3f} s: batched "
+          f"Newton trains {trains_s:.3f} s, batched Adam {sum(adam_ms) / 1e3:.3f} s "
+          f"({FIT_RESTARTS} restarts x {FIT_STEPS} steps a round), the rest (final "
+          f"NLMLs, the table) {rounds_s - trains_s - sum(adam_ms) / 1e3:.3f} s "
+          f"(host clock, synchronized)", flush=True)
+    print("[fit-ml] Adam rounds (CUDA events): " + ", ".join(
+        f"round {i + 1} {kind} {ms:.3f} ms" for i, (kind, ms) in enumerate(graphed_rounds))
+        + "; the capture alone " + ", ".join(f"{ms:.3f} ms" for ms in graphed_captures)
+        + " (host clock); the eager A/B's rounds " + ", ".join(
+            f"{ms:.3f} ms" for _, ms in eager_rounds)
+        + f", its fit {eager_fit_s:.3f} s", flush=True)
+    print(f"[fit-ml] the fit's peak memory: {fit_memory['peak_mib']:.1f} MiB allocated, "
+          f"{fit_memory['over_mib']:.1f} MiB over what was allocated before it", flush=True)
     for i, row in enumerate(fit.history):
         print(f"[fit-ml] NLML after round {i + 1}: "
               + ", ".join(f"{v:.6g}" for v in row), flush=True)
@@ -715,12 +787,22 @@ def fit_ml_phase(dev, smi):
     shipped = [score for cfg, _, score in fit.table if cfg == fit.config][0]
     print(f"[fit-ml] shipped: {fit.config} (score {shipped:.6g}; grid seed "
           f"{fit.table[1][2]:.6g})", flush=True)
+    same = np.array_equal(fit.history, eager_fit.history)
+    print(f"[fit-ml] graphed history bitwise the eager batched fit's: {same} (max "
+          f"abs diff {np.abs(fit.history - eager_fit.history).max():.3g}); captures "
+          f"in the fit: {len(graphed_captures)}; the eager fit's shipped config "
+          f"{'equal' if eager_fit.config == fit.config else 'different'}", flush=True)
     check(np.isfinite(fit.history).all(), "the fit's NLML history is not finite")
     check(fit.history.shape == (FIT_ROUNDS, FIT_RESTARTS),
           f"history shape {fit.history.shape}")
     check(len(fit.table) == FIT_ROWS, f"{len(fit.table)} table rows, expected {FIT_ROWS}")
     check(all(math.isfinite(score) for _, _, score in fit.table), "a score is not finite")
     check(shipped <= fit.table[1][2], "the shipped config scores worse than the grid seed")
+    check(same, "the graphed fit's history differs from the eager batched fit's")
+    check(len(graphed_captures) == 1 and [k for k, _ in graphed_rounds]
+          == ["eager", "capture"] + ["replay"] * (FIT_ROUNDS - 2),
+          f"rounds {graphed_rounds}, captures {graphed_captures}: one capture a fit")
+    check(all(k == "eager" for k, _ in eager_rounds), "the eager A/B replayed a graph")
 
     fp.reset_launches()
     runner.run(config, device=dev, make_plots=False)

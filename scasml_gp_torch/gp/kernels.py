@@ -27,8 +27,13 @@ PHI_SETS = ("dom", "bdy", "dom", "dom", "dom")
 
 def split_gamma(gamma) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Normalize gamma to (gs, gt, gr) 0-d float32 tensors: accepts a scalar
-    (isotropic), a length-2 [gs, gt] or a length-3 [gs, gt, gr]."""
-    g = torch.as_tensor(gamma, dtype=torch.float32).reshape(-1)
+    (isotropic), a length-2 [gs, gt] or a length-3 [gs, gt, gr].  A batch
+    (R, 3) of gammas, one row per restart of the marginal-likelihood fit,
+    gives (R, 1, 1) tensors that broadcast over (R, n, m) pair blocks."""
+    g = torch.as_tensor(gamma, dtype=torch.float32)
+    if g.dim() == 2:
+        return g[:, 0, None, None], g[:, 1, None, None], g[:, 2, None, None]
+    g = g.reshape(-1)
     if g.shape[0] == 1:
         return g[0], g[0], torch.zeros((), dtype=torch.float32, device=g.device)
     if g.shape[0] == 2:
@@ -54,7 +59,9 @@ def row_stats(x: torch.Tensor) -> torch.Tensor:
 
 def pair_stats(x: torch.Tensor, y: torch.Tensor, gamma,
                operand_dtype=torch.float32, y_stats=None) -> PairStats:
-    """Pair statistics from one x @ y^T product in float32.
+    """Pair statistics from one x @ y^T product in float32.  With a batch
+    (R, 3) of gammas only ``kappa`` gains the leading axis: q, s and dt are
+    formed once for every gamma.
 
     r^2 is formed as |x|^2 + |y|^2 - 2 x.y and clamped at 0, as in the JAX
     package; this is why the port must not run float32 products in TF32.

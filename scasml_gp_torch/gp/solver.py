@@ -32,6 +32,7 @@ from scasml_gp_torch.config import GPConfig, PrecisionPolicy
 from scasml_gp_torch.equations.base import Equation
 from scasml_gp_torch.gp.gram import (
     gram_matrix,
+    per_matrix,
     regularized_factorization,
     sharded_gram_matrix,
 )
@@ -281,7 +282,12 @@ class GP:
         seeded with 0, times ``config.init_scale``.  With a ``mesh`` (by
         default the GP's) of more than one 'model' rank the Gram is
         assembled by row blocks over that axis; the factorization and the
-        Newton steps run on every rank."""
+        Newton steps run on every rank.
+
+        ``gamma`` (R, 3) and ``nugget`` (R,) train R kernels at once, every
+        one from the same ``sol0``, as the JAX package's vmapped
+        ``_train_jit`` does (the marginal-likelihood fit's restarts); the
+        outputs gain a leading axis R."""
         sol0 = self._initial_point(x_dom.shape[0], x_dom.device, sol0)
         mesh = self.mesh if mesh is None else mesh
         od = self.precision.gram_dtype
@@ -329,13 +335,17 @@ class GP:
 
     def _newton_body(self, C, bdy_g, rhs, steps, damping, grad_tol,
                      sol0) -> _TrainOut:
+        """Damped Newton from ``sol0`` on (K + nugget I)^{-1} = C, which may
+        be a batch (R, phi, phi): each restart then takes its own line
+        search, damping and stop, and the outputs gain the axis R."""
         N = rhs.shape[0]
         Nb = bdy_g.shape[0]
         dev = C.device
+        batch = C.shape[:-2]
         # Row sets of b = [z1 (R1), bdy (R2), z3 (R3), F (R4), z5 (R5)].
         i1, i2, i3, i4 = N, N + Nb, 2 * N + Nb, 3 * N + Nb
         grp_rows = {0: (0, i1), 1: (i2, i3), 2: (i4, 4 * N + Nb)}
-        C44 = C[i3:i4, i3:i4]
+        C44 = C[..., i3:i4, i3:i4]
         form = self.form
 
         def b_of(sol):  # sol (..., 3N) -> b (..., phi)
@@ -344,16 +354,16 @@ class GP:
             return torch.cat([z1, g, z3, form.F(z1, z3, z5, rhs), z5], dim=-1)
 
         def grad_of(sol, Cb):
-            z1, z3, z5 = sol[:N], sol[N:2 * N], sol[2 * N:]
+            z1, z3, z5 = sol[..., :N], sol[..., N:2 * N], sol[..., 2 * N:]
             f1, f3, f5 = form.dF(z1, z3, z5)
-            r4 = Cb[i3:i4]
-            return 2.0 * torch.cat([Cb[:i1] + f1 * r4, Cb[i2:i3] + f3 * r4,
-                                    Cb[i4:] + f5 * r4])
+            r4 = Cb[..., i3:i4]
+            return 2.0 * torch.cat([Cb[..., :i1] + f1 * r4, Cb[..., i2:i3] + f3 * r4,
+                                    Cb[..., i4:] + f5 * r4], dim=-1)
 
         def hess_of(sol, Cb):
-            z1, z3, z5 = sol[:N], sol[N:2 * N], sol[2 * N:]
+            z1, z3, z5 = sol[..., :N], sol[..., N:2 * N], sol[..., 2 * N:]
             fs = form.dF(z1, z3, z5)
-            d2 = form.d2F_contraction(Cb[i3:i4], z1, z3, z5)
+            d2 = form.d2F_contraction(Cb[..., i3:i4], z1, z3, z5)
             rows = []
             for a in range(3):
                 ra0, ra1 = grp_rows[a]
@@ -361,54 +371,55 @@ class GP:
                 for bg in range(3):
                     rb0, rb1 = grp_rows[bg]
                     blk = (
-                        C[ra0:ra1, rb0:rb1]
-                        + fs[a][:, None] * C[i3:i4, rb0:rb1]
-                        + C[ra0:ra1, i3:i4] * fs[bg][None, :]
-                        + fs[a][:, None] * C44 * fs[bg][None, :]
+                        C[..., ra0:ra1, rb0:rb1]
+                        + fs[a][..., :, None] * C[..., i3:i4, rb0:rb1]
+                        + C[..., ra0:ra1, i3:i4] * fs[bg][..., None, :]
+                        + fs[a][..., :, None] * C44 * fs[bg][..., None, :]
                     )
                     if (a, bg) in d2:
-                        blk = blk + torch.diag(d2[(a, bg)])
+                        blk = blk + torch.diag_embed(d2[(a, bg)])
                     row.append(blk)
-                rows.append(torch.cat(row, dim=1))
-            return 2.0 * torch.cat(rows, dim=0)
+                rows.append(torch.cat(row, dim=-1))
+            return 2.0 * torch.cat(rows, dim=-2)
 
-        def losses_of(sols):  # (k, 3N) -> (k,)
+        def losses_of(sols):  # (..., k, 3N) -> (..., k)
             B = b_of(sols)
-            return torch.sum((B @ C) * B, dim=1)
+            return torch.sum((B @ C) * B, dim=-1)
 
         eye = torch.eye(3 * N, dtype=torch.float32, device=dev)
         alphas = 0.5 ** torch.arange(8, dtype=torch.float32, device=dev)
-        sol = sol0
-        J = losses_of(sol[None, :])[0]
-        hist = torch.zeros((steps + 1,), dtype=torch.float32, device=dev)
-        hist[0] = J
-        done = torch.zeros((), dtype=torch.bool, device=dev)
-        gnorm_last = torch.zeros((), dtype=torch.float32, device=dev)
-        damp = torch.full((), damping, dtype=torch.float32, device=dev)
+        sol = sol0.expand(batch + sol0.shape)
+        J = losses_of(sol[..., None, :])[..., 0]
+        hist = torch.zeros(batch + (steps + 1,), dtype=torch.float32, device=dev)
+        hist[..., 0] = J
+        done = torch.zeros(batch, dtype=torch.bool, device=dev)
+        gnorm_last = torch.zeros(batch, dtype=torch.float32, device=dev)
+        damp = torch.full(batch, damping, dtype=torch.float32, device=dev)
 
         for step in range(steps):
             b = b_of(sol)
-            Cb = C @ b
+            Cb = per_matrix(torch.mv, C, b)
             grad = grad_of(sol, Cb)
-            gnorm = torch.linalg.vector_norm(grad)
+            gnorm = torch.linalg.vector_norm(grad, dim=-1)
             stop = done | (gnorm < grad_tol)
-            H = hess_of(sol, Cb) + damp * eye
-            direction = torch.linalg.solve_ex(H, -grad[:, None])[0][:, 0]
-            cand = sol[None, :] + alphas[:, None] * direction[None, :]
+            H = hess_of(sol, Cb) + damp[..., None, None] * eye
+            direction = per_matrix(torch.linalg.solve_ex, H, -grad[..., :, None])[0][..., 0]
+            cand = sol[..., None, :] + alphas[:, None] * direction[..., None, :]
             losses = losses_of(cand)
-            best = torch.argmin(losses).reshape(1)
-            best_loss = losses.index_select(0, best)[0]
+            best = torch.argmin(losses, dim=-1, keepdim=True)
+            best_loss = losses.gather(-1, best)[..., 0]
+            best_sol = cand.gather(-2, best[..., None].expand(batch + (1, 3 * N)))[..., 0, :]
             improved = best_loss < J
             accept = improved & ~stop
-            sol = torch.where(accept, cand.index_select(0, best)[0], sol)
+            sol = torch.where(accept[..., None], best_sol, sol)
             J = torch.where(accept, best_loss, J)
             damp = torch.where(improved, torch.clamp_min(damp * 0.1, damping),
                                torch.clamp_max(damp * 10.0, 1.0))
-            hist[step + 1] = J
+            hist[..., step + 1] = J
             gnorm_last = torch.where(done, gnorm_last, gnorm)
             done = stop
 
-        right_vector = C @ b_of(sol)
+        right_vector = per_matrix(torch.mv, C, b_of(sol))
         return _TrainOut(sol=sol, right_vector=right_vector, loss_history=hist,
                          grad_norm=gnorm_last)
 

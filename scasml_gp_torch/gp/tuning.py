@@ -110,17 +110,23 @@ def scasml_judge(gp_cls, equation, base: GPConfig, x_dom, x_bdy, steps: int,
             loss_history=torch.zeros((1,), dtype=torch.float32, device=dev),
         )
         total = 0.0
-        for si, val_d in enumerate(val_sets):
-            # common random numbers: every candidate judges with the same draws
-            judge.gen.manual_seed(seed + 101 * (si + 1))
-            ub = judge.uz_solve(judge_n, None, val_d, M=judge_M)[:, :1]
-            if judge_score == "cross":
-                # two independent rollouts: E[ub1 ub2] = (u - u_hat)^2
-                judge.gen.manual_seed(seed + 101 * (si + 1) + 53)
-                ub2 = judge.uz_solve(judge_n, None, val_d, M=judge_M)[:, :1]
-                total += float(torch.mean(ub * ub2))
-            else:
-                total += float(torch.mean(ub * ub))
+        # Eager rollouts: a graph belongs to one trained state
+        # (picard/graphs.py), and each candidate calls its schedule only
+        # once per validation set, so a graphed judge would pay an eager
+        # call, a capture at 2-4x an eager call and one replay per
+        # candidate, and win nothing back.
+        with judge._eager():
+            for si, val_d in enumerate(val_sets):
+                # common random numbers: every candidate judges with the same draws
+                judge.gen.manual_seed(seed + 101 * (si + 1))
+                ub = judge.uz_solve(judge_n, None, val_d, M=judge_M)[:, :1]
+                if judge_score == "cross":
+                    # two independent rollouts: E[ub1 ub2] = (u - u_hat)^2
+                    judge.gen.manual_seed(seed + 101 * (si + 1) + 53)
+                    ub2 = judge.uz_solve(judge_n, None, val_d, M=judge_M)[:, :1]
+                    total += float(torch.mean(ub * ub2))
+                else:
+                    total += float(torch.mean(ub * ub))
         return total / len(val_sets)
 
     return score

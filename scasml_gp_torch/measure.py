@@ -1,6 +1,7 @@
 """Measure the fused-posterior kernel and the ScaSML solve on one GPU.
 
-    python -m scasml_gp_torch.measure [--out FILE.json] [--parts kernel,splits,host,solves,tune]
+    python -m scasml_gp_torch.measure [--out FILE.json]
+        [--parts kernel,splits,host,solves,tune,train,fit]
 
 1. kernel: CUDA-event time of each specialisation of the kernel against a GP
    trained on 1000 + 200 rows, at d=20 (the bench GP) and at d=100 (F = 101,
@@ -30,6 +31,17 @@
    eager and with captured graphs, in turns (eager, graphed, graphed,
    eager): host-clock seconds and the device memory allocated over the
    start, peak and after.
+6. train: torch.profiler over one dense ``GP._train`` (1000 + 200 points,
+   20 Newton steps) at d = 20 and d = 100, and over its pieces alone (the
+   Gram, the factorization, 20 ``solve_ex`` on the 3N x 3N Newton matrix):
+   device busy and idle time, each piece's share of the train's busy time,
+   peak memory.
+7. fit: one round of ``--fit-ml``'s marginal-likelihood fit at d=20 with
+   its 6 restarts: one Adam step looped over the restarts, batched eagerly
+   and batched as a replayed CUDA graph; the batched Newton train against 6
+   single trains (busy, idle, peak memory of each); the library's batched
+   Cholesky, Cholesky inverse and 3N x 3N solve against one call per matrix
+   at the fit's shapes.
 Needs a CUDA device; prints one line per measurement and writes all of them
 to --out as JSON.  Parts 3 and 4 use only the package's public entry points
 and ``fused_posterior(x, fused_inputs, want_grad, want_ops)``, so this file
@@ -47,6 +59,7 @@ import statistics
 import subprocess
 import time
 
+import numpy as np
 import torch
 
 import scasml_gp_torch as port
@@ -70,7 +83,7 @@ MAIN_SHAPES = (
     ("Sine grad+ops", 100, 1200, (True, True)),
 )
 SPLITS = (1, 2, 3, 4, 5, 6, 7, 8, 10, 12, 14, 19)
-PARTS = ("kernel", "splits", "host", "solves", "tune")
+PARTS = ("kernel", "splits", "host", "solves", "tune", "train", "fit")
 HOST_ROWS = 64
 SOLVE_REPS = 21
 FP32_PEAK = 67e12  # H100 SXM float32 outside the tensor cores, at 700 W
@@ -130,10 +143,10 @@ def event_ms(fn, k=7, inner=10, warmup=2, device_bound=False):
     return statistics.median(samples)
 
 
-def profile_solve(name, solve, warm=0):
+def profile_solve(name, solve, warm=0, reps=SOLVE_REPS):
     """After ``warm`` untimed calls, peak memory of a call, then the wall
-    time (median of SOLVE_REPS, profiler off) and a torch.profiler
-    breakdown of one warm call of ``solve``."""
+    time (median of ``reps``, profiler off) and a torch.profiler breakdown
+    of one warm call of ``solve``."""
     dev = torch.device("cuda", 0)
     for _ in range(warm):
         solve()
@@ -146,7 +159,7 @@ def profile_solve(name, solve, warm=0):
     print(f"[memory] {name} peak allocated {peak:.1f} MiB, {peak - base:.1f} MiB over "
           "what was allocated before the call", flush=True)
     walls = []
-    for _ in range(SOLVE_REPS):
+    for _ in range(reps):
         t0 = time.perf_counter()
         solve()
         torch.cuda.synchronize()
@@ -175,7 +188,7 @@ def profile_solve(name, solve, warm=0):
            "fused_posterior_ms": kern,
            "device_launches": sum(r["count"] for r in rows),
            "device_idle_share": 1.0 - busy / wall_ms, "by_kernel": rows}
-    print(f"[profile] {name} wall {wall_ms:.3f} ms (median of {SOLVE_REPS}, "
+    print(f"[profile] {name} wall {wall_ms:.3f} ms (median of {reps}, "
           f"min {min(walls):.3f}, profiler off); "
           f"device busy {busy:.3f} ms in {out['device_launches']} "
           f"device ops (fused_posterior {kern:.3f} ms); idle share "
@@ -248,6 +261,167 @@ def tune_ab(dev) -> list:
               f"(host clock, synchronized); allocated over the start: peak "
               f"+{row['peak_mib']:.1f} MiB, after +{row['after_mib']:.1f} MiB", flush=True)
     return rows
+
+
+def profile_train(dev) -> dict:
+    """Part 6: one dense ``GP._train`` (1000 + 200 points, 20 Newton steps)
+    at d = 20 and 100, and its pieces alone: the Gram, the factorization
+    and 20 ``solve_ex`` calls on a 3N x 3N matrix of the Newton step's kind
+    (2 C[z, z] + damping I); each piece's share of the train's device busy
+    time."""
+    from scasml_gp_torch.gp.gram import gram_matrix, regularized_factorization
+
+    out = {}
+    for d in (D, 100):
+        eq = port.GradDependentNonlinear(n_input=d + 1)
+        x_dom, x_bdy = eq.generate_data(
+            N_DOM, N_BDY, torch.Generator(device=dev).manual_seed(1234), device=dev)
+        cfg = port.GPConfig(gn_steps=20)
+        gp = port.GPGradDependentNonlinear(eq, cfg, device=dev)
+        bdy_g, rhs = eq.g(x_bdy)[:, 0], gp.form.rhs_f(x_dom)
+        gamma = torch.tensor(gp.gamma, dtype=torch.float32, device=dev)
+        K = gram_matrix(x_dom, x_bdy, gamma, d)
+        _, C = regularized_factorization(K, cfg.nugget)
+        z = torch.cat([torch.arange(N_DOM), torch.arange(N_DOM + N_BDY, 2 * N_DOM + N_BDY),
+                       torch.arange(3 * N_DOM + N_BDY, 4 * N_DOM + N_BDY)]).to(dev)
+        H = 2.0 * C[z][:, z] + cfg.damping * torch.eye(3 * N_DOM, device=dev)
+        g = torch.randn((3 * N_DOM, 1), generator=torch.Generator(device=dev).manual_seed(5),
+                        device=dev)
+        parts = {
+            "train": lambda: gp._train(x_dom, x_bdy, bdy_g, rhs, gamma, cfg.nugget, 20,
+                                       cfg.damping, cfg.grad_tol),
+            "gram": lambda: gram_matrix(x_dom, x_bdy, gamma, d),
+            "factorization": lambda: regularized_factorization(K, cfg.nugget),
+            "solve_ex x20": lambda: [torch.linalg.solve_ex(H, g) for _ in range(20)],
+        }
+        res = {k: profile_solve(f"train d={d}: {k}", fn, warm=1, reps=11)
+               for k, fn in parts.items()}
+        busy = res["train"]["device_busy_ms"]
+        res["shares_of_train_busy"] = {k: res[k]["device_busy_ms"] / busy
+                                       for k in parts if k != "train"}
+        print(f"[train] d={d}: device busy {busy:.3f} ms of wall "
+              f"{res['train']['wall_ms_median']:.3f} ms (idle share "
+              f"{res['train']['device_idle_share']:.3f}); shares of the busy time: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in res["shares_of_train_busy"].items()),
+              flush=True)
+        out[f"d{d}"] = res
+    return out
+
+
+def profile_fit(dev) -> dict:
+    """Part 7: one round of the marginal-likelihood fit at d=20 (1000 + 200
+    points, the runner's 6 restarts: ridge 0, 3, 10, 30, a ridge-30 seed and
+    its jittered twin): one Adam step of all restarts looped (one
+    torch.optim.Adam per restart, the fit before the restart axis), batched
+    eagerly and batched as a replayed graph; 6 single Newton trains and the
+    batched train; the library's batched Cholesky, Cholesky inverse and
+    3N x 3N solve against one call per matrix (gram.per_matrix) at the fit's
+    shapes, with the largest difference of their results.  A checkout from
+    before the restart axis gives the looped step and the single trains."""
+    from scasml_gp_torch.gp import marginal as pm
+
+    eq = port.GradDependentNonlinear(n_input=D + 1)
+    x_dom, x_bdy = eq.generate_data(
+        N_DOM, N_BDY, torch.Generator(device=dev).manual_seed(1234), device=dev)
+    base = port.GPConfig()
+    gp = port.GPGradDependentNonlinear(eq, base, device=dev)
+    bdy_g, rhs = eq.g(x_bdy)[:, 0], gp.form.rhs_f(x_dom)
+    sigma = float(eq.sigma())
+    theta0 = [pm._params_to_theta(1.0, 1.0, rs, base.nugget) for rs in (0.0, 3.0, 10.0, 30.0)]
+    theta0 += [theta0[-1], theta0[-1] + np.array([0.05, 0.0, 0.0, 0.0], np.float32)]
+    theta0 = torch.as_tensor(np.stack(theta0), device=dev)
+    R = theta0.shape[0]
+    mask = torch.tensor([1.0, 1.0, 1.0, 0.0], device=dev)
+    nlml_of = lambda t, bb: pm._nlml(t, bb, x_dom, x_bdy, sigma, D)  # noqa: E731
+
+    def single_latents(th):
+        """One restart's latents b through the single Newton train."""
+        with torch.no_grad():
+            sol = gp._train(x_dom, x_bdy, bdy_g, rhs, pm._gamma_of(th, sigma, D),
+                            pm._theta_to_params(th)[3], base.gn_steps, base.damping,
+                            base.grad_tol).sol
+            z1, z3, z5 = sol[:N_DOM], sol[N_DOM:2 * N_DOM], sol[2 * N_DOM:]
+            return torch.cat([z1, bdy_g, z3, gp.form.F(z1, z3, z5, rhs), z5])
+
+    b = torch.stack([single_latents(t) for t in theta0])
+    thetas = [t.clone().requires_grad_(True) for t in theta0]
+    opts = [torch.optim.Adam([t], lr=0.08, betas=(0.9, 0.999), eps=1e-8) for t in thetas]
+
+    def looped_step():
+        for t, t0, opt, bb in zip(thetas, theta0, opts, b):
+            opt.zero_grad(set_to_none=True)
+            (nlml_of(t, bb) + 0.5 * 2.0 * torch.sum((t - t0) ** 2)).backward()
+            t.grad = torch.where(torch.isfinite(t.grad), t.grad, torch.zeros_like(t.grad)) * mask
+            opt.step()
+
+    out = {"restarts": R}
+    out["step_looped"] = profile_solve(f"fit: one Adam step, {R} restarts looped",
+                                       looped_step, warm=1)
+    out["train_single_x6"] = profile_solve(
+        f"fit: {R} single Newton trains", lambda: [single_latents(t) for t in theta0], reps=5)
+    if not hasattr(pm, "_MapAdam"):  # a checkout from before the restart axis
+        return out
+    adam = pm._MapAdam(nlml_of, theta0, 1, 0.08, 2.0, mask, graphed=True)
+    try:
+        adam(theta0, b)  # the eager round: the warm-up
+        out["step_batched_eager"] = profile_solve(
+            f"fit: one Adam step, {R} restarts batched, eager", adam._step, warm=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        adam(theta0, b)  # captures the step, then replays it once
+        torch.cuda.synchronize()
+        out["capture_call_ms"] = (time.perf_counter() - t0) * 1e3
+        out["step_batched_graphed"] = profile_solve(
+            f"fit: one Adam step, {R} restarts batched, graphed", adam.graph.replay, warm=1)
+    finally:
+        adam.close()
+    out["train_batched"] = profile_solve(
+        f"fit: batched Newton train of {R} restarts", lambda: pm._train_latents(
+            gp, theta0, x_dom, x_bdy, bdy_g, rhs, sigma, base.gn_steps, base), reps=5)
+    print(f"[fit] one Adam step of {R} restarts: looped "
+          f"{out['step_looped']['wall_ms_median']:.3f} ms, batched eager "
+          f"{out['step_batched_eager']['wall_ms_median']:.3f} ms, graphed "
+          f"{out['step_batched_graphed']['wall_ms_median']:.3f} ms (capture call "
+          f"{out['capture_call_ms']:.3f} ms); train batched "
+          f"{out['train_batched']['wall_ms_median']:.3f} ms, {R} single "
+          f"{out['train_single_x6']['wall_ms_median']:.3f} ms", flush=True)
+
+    # the libraries' batched routes at the fit's shapes, against the one
+    # call per matrix that gram.per_matrix makes
+    from scasml_gp_torch.gp import gram
+
+    gamma = pm._gamma_of(theta0, sigma, D)
+    K = gram.gram_matrix(x_dom, x_bdy, gamma, D)
+    nug = pm._theta_to_params(theta0)[3]
+    K = 0.5 * (K + K.mT)
+    scale = torch.rsqrt(torch.diagonal(K, dim1=-2, dim2=-1) + nug[:, None])
+    eye = torch.eye(K.shape[-1], device=dev)
+    M = scale[:, :, None] * (K + nug[:, None, None] * eye) * scale[:, None, :]
+    del K
+    L = gram.per_matrix(torch.linalg.cholesky_ex, M)[0]
+    n3 = 3 * N_DOM
+    H = torch.randn((R, n3, n3), generator=torch.Generator(device=dev).manual_seed(6),
+                    device=dev) / n3 ** 0.5 + 2.0 * torch.eye(n3, device=dev)
+    rhs_h = torch.randn((R, n3, 1), generator=torch.Generator(device=dev).manual_seed(7),
+                        device=dev)
+    out["library"] = {}
+    for name, fn, args in (("cholesky_ex", torch.linalg.cholesky_ex, (M,)),
+                           ("cholesky_inverse", torch.cholesky_inverse, (L,)),
+                           ("solve_ex", torch.linalg.solve_ex, (H, rhs_h))):
+        first = lambda o: o[0] if isinstance(o, tuple) else o  # noqa: E731
+        batched = first(fn(*args))
+        each = first(gram.per_matrix(fn, *args))
+        row = {"shape": list(args[0].shape),
+               "batched_ms": event_ms(lambda: fn(*args), k=3, inner=1, warmup=1),
+               "per_matrix_ms": event_ms(lambda: gram.per_matrix(fn, *args), k=3, inner=1,
+                                         warmup=1),
+               "max_rel_diff": float((batched - each).abs().max() / each.abs().max())}
+        out["library"][name] = row
+        print(f"[fit] {name} {row['shape']}: batched {row['batched_ms']:.3f} ms, "
+              f"one call per matrix {row['per_matrix_ms']:.3f} ms (CUDA events); "
+              f"results differ by {row['max_rel_diff']:.3g} of the largest entry",
+              flush=True)
+    return out
 
 
 def kernel_scaling(eq, fused, d, dev):
@@ -378,6 +552,10 @@ def main(argv=None):
         res.update(profile_solves(eq, gp, x_test))
     if "tune" in parts:
         res["tune"] = tune_ab(dev)
+    if "train" in parts:
+        res["train"] = profile_train(dev)
+    if "fit" in parts:
+        res["fit"] = profile_fit(dev)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as fh:

@@ -87,23 +87,26 @@ def eager_reason(device, debug_checks=False, meshes=(), parity=False) -> Optiona
 
 
 class Captured:
-    """One captured graph with its static input and output."""
+    """One captured graph with its static inputs and output."""
 
-    def __init__(self, graph, static_x: torch.Tensor, static_out: torch.Tensor):
+    def __init__(self, graph, static_in: tuple, static_out):
         self.graph = graph
-        self.static_x = static_x
+        self.static_in = static_in
         self.static_out = static_out
         self.launches = (0, {}, {})  # the kernel launches of one replay
         self.pool = graph.pool()
 
-    def replay(self, x: torch.Tensor) -> torch.Tensor:
-        self.static_x.copy_(x)
+    def replay(self, *xs: torch.Tensor):
+        """Copy ``xs`` into the static inputs, replay, and return a clone of
+        the static output (None for a graph that returns nothing)."""
+        for static, x in zip(self.static_in, xs, strict=True):
+            static.copy_(x)
         self.graph.replay()
-        return self.static_out.clone()
+        return None if self.static_out is None else self.static_out.clone()
 
     def close(self) -> None:
         self.graph.reset()
-        self.static_x = self.static_out = None
+        self.static_in = self.static_out = None
 
 
 def _origin(exc: BaseException) -> BaseException:
@@ -128,15 +131,26 @@ def _where(exc: BaseException) -> str:
 
 
 def capture_cuda(run: Callable, x: torch.Tensor, gen, pool) -> Captured:
-    """Capture ``run(static_x)`` as one CUDA graph on a side stream, with
-    ``gen`` (a CUDA torch.Generator, or None) registered with it and its
-    memory in ``pool`` (None: a new pool).  Host syncs and host copies raise
-    :class:`GraphCaptureError` naming the op."""
-    dev = x.device
+    """Capture the rollout ``run(static_x)`` as one CUDA graph (the capture
+    step of :class:`GraphCache`); see :func:`capture_graph`."""
+    return capture_graph(run, (x,), gen, pool, "the rollout")
+
+
+def capture_graph(run: Callable, inputs: tuple = (), gen=None, pool=None,
+                  what: str = "the rollout") -> Captured:
+    """Capture ``run(*static_inputs)`` as one CUDA graph on a side stream,
+    the static inputs cloned from ``inputs`` (a function that reads and
+    writes buffers of its own takes none), with ``gen`` (a CUDA
+    torch.Generator, or None) registered with it and its memory in ``pool``
+    (None: a new pool).  ``run`` may differentiate: the backward ops run on
+    the stream of their forward ops, the capture's.  Host syncs and host
+    copies raise :class:`GraphCaptureError` naming the op and ``what`` was
+    being captured."""
     graph = torch.cuda.CUDAGraph()
     if gen is not None:
         graph.register_generator_state(gen)
-    static_x = x.clone()
+    static_in = tuple(x.clone() for x in inputs)
+    dev = inputs[0].device if inputs else torch.device("cuda", torch.cuda.current_device())
     current = torch.cuda.current_stream(dev)
     stream = torch.cuda.Stream(device=dev)
     stream.wait_stream(current)
@@ -150,7 +164,7 @@ def capture_cuda(run: Callable, x: torch.Tensor, gen, pool) -> Captured:
             graph.capture_begin(pool=pool, capture_error_mode="thread_local")
             try:
                 torch.cuda.set_sync_debug_mode("error")
-                static_out = run(static_x)
+                static_out = run(*static_in)
             finally:
                 torch.cuda.set_sync_debug_mode(mode)
                 graph.capture_end()
@@ -160,13 +174,13 @@ def capture_cuda(run: Callable, x: torch.Tensor, gen, pool) -> Captured:
             raise
         first = _origin(exc)
         raise GraphCaptureError(
-            f"the rollout cannot be captured as a CUDA graph: at {_where(first)}: "
+            f"{what} cannot be captured as a CUDA graph: at {_where(first)}: "
             f"{type(first).__name__}: {first}") from exc
     finally:
         if collecting:
             gc.enable()
         current.wait_stream(stream)
-    return Captured(graph, static_x, static_out)
+    return Captured(graph, static_in, static_out)
 
 
 class GraphCache:

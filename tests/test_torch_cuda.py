@@ -520,3 +520,129 @@ def test_capture_that_syncs_raises(bench_gp, sync):
         with pytest.raises(GraphCaptureError, match="float\\(out|torch.as_tensor\\(np.array"):
             solve(sca, x)
     assert sca._graphs.captures == 0 and sca._graphs.replays == 0
+
+
+# The marginal-likelihood fit's batched rounds (gp/marginal.py): on the card
+# an Adam step is captured once per fit and replayed.
+
+@pytest.fixture(scope="module")
+def fit_problem():
+    """GradDependentNonlinear at d = D on the card: 150 + 40 points."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import scasml_gp_torch as port
+
+    dev = torch.device("cuda", 0)
+    eq = port.GradDependentNonlinear(n_input=D + 1)
+    x_dom, x_bdy = eq.generate_data(150, 40, torch.Generator(device=dev).manual_seed(2),
+                                    device=dev)
+    return eq, x_dom, x_bdy, port.GPConfig(gn_steps=8)
+
+
+def _fit(fit_problem, **kw):
+    import scasml_gp_torch as port
+    from scasml_gp_torch.gp import marginal as pm
+
+    eq, x_dom, x_bdy, base = fit_problem
+    return pm.fit_gp_marginal_likelihood(port.GPGradDependentNonlinear, eq, x_dom, x_bdy,
+                                         base=base, outer_rounds=3, inner_steps=10, **kw)
+
+
+@pytest.mark.cuda
+def test_graphed_fit_rounds_are_bitwise_eager(fit_problem, monkeypatch):
+    """The fit's Adam steps replay one graph captured once per fit call;
+    the history, the candidates and the shipped config are bitwise the
+    eager batched fit's."""
+    from scasml_gp_torch.gp import marginal as pm
+
+    captures = []
+    capture = pm._capture
+    monkeypatch.setattr(pm, "_capture", lambda *a, **kw: captures.append(1) or capture(*a, **kw))
+    assert pm.eager_reason(fit_problem[1].device) is None
+    with pm._eager():
+        want = _fit(fit_problem)
+    assert captures == []
+    for fits in (1, 2):
+        got = _fit(fit_problem)
+        assert len(captures) == fits
+        assert np.array_equal(got.history, want.history), np.abs(got.history - want.history).max()
+        assert [(c, n) for c, n, _ in got.table][1:] == [(c, n) for c, n, _ in want.table][1:]
+        assert got.config == want.config
+
+
+@pytest.mark.cuda
+def test_batched_fit_matches_the_per_restart_loop(fit_problem):
+    """The batched fit's NLML history against the per-restart loop it
+    replaced (one Newton train and one torch.optim.Adam per restart and
+    round, inlined here), within 1e-3 relative."""
+    from scasml_gp_torch.gp import marginal as pm
+
+    import scasml_gp_torch as port
+
+    eq, x_dom, x_bdy, base = fit_problem
+    got = _fit(fit_problem)
+    gp = port.GPGradDependentNonlinear(eq, base, device=x_dom.device)
+    bdy_g = eq.g(x_bdy)[:, 0]
+    rhs = gp.form.rhs_f(x_dom)
+    sigma, N = float(eq.sigma()), x_dom.shape[0]
+    theta0 = torch.as_tensor(pm._initial_thetas(base, (0.0, 3.0, 10.0, 30.0), ()),
+                             device=x_dom.device)
+    mask = torch.tensor([1.0, 1.0, 1.0, 0.0], device=x_dom.device)
+    thetas, history = list(theta0), []
+    for _ in range(3):
+        finals = []
+        for i, t0 in enumerate(theta0):
+            with torch.no_grad():
+                sol = gp._train(x_dom, x_bdy, bdy_g, rhs, pm._gamma_of(thetas[i], sigma, D),
+                                pm._theta_to_params(thetas[i])[3], base.gn_steps,
+                                base.damping, base.grad_tol).sol
+                z1, z3, z5 = sol[:N], sol[N:2 * N], sol[2 * N:]
+                b = torch.cat([z1, bdy_g, z3, gp.form.F(z1, z3, z5, rhs), z5])
+            theta = thetas[i].detach().clone().requires_grad_(True)
+            opt = torch.optim.Adam([theta], lr=0.08, betas=(0.9, 0.999), eps=1e-8)
+            for _ in range(10):
+                opt.zero_grad(set_to_none=True)
+                obj = pm._nlml(theta, b, x_dom, x_bdy, sigma, D) \
+                    + 0.5 * 2.0 * torch.sum((theta - t0) ** 2)
+                obj.backward()
+                g = theta.grad
+                theta.grad = torch.where(torch.isfinite(g), g, torch.zeros_like(g)) * mask
+                opt.step()
+            thetas[i] = theta.detach()
+            with torch.no_grad():
+                finals.append(float(pm._nlml(thetas[i], b, x_dom, x_bdy, sigma, D)))
+        history.append(finals)
+    assert got.history.shape == (3, 4)
+    np.testing.assert_allclose(got.history, np.array(history), rtol=1e-3)
+
+
+@pytest.mark.cuda
+def test_captured_fit_round_makes_no_host_sync(fit_problem):
+    """A round of the graphed Adam (the copies into the graph's buffers, the
+    capture, the replays) runs under set_sync_debug_mode('error')."""
+    import scasml_gp_torch as port
+    from scasml_gp_torch.gp import marginal as pm
+
+    eq, x_dom, x_bdy, base = fit_problem
+    gp = port.GPGradDependentNonlinear(eq, base, device=x_dom.device)
+    sigma = float(eq.sigma())
+    theta0 = torch.as_tensor(pm._initial_thetas(base, (0.0, 3.0, 10.0, 30.0), ()),
+                             device=x_dom.device)
+    b = pm._train_latents(gp, theta0, x_dom, x_bdy, eq.g(x_bdy)[:, 0],
+                          gp.form.rhs_f(x_dom), sigma, base.gn_steps, base)
+    adam = pm._MapAdam(lambda t, bb: pm._nlml(t, bb, x_dom, x_bdy, sigma, D), theta0, 5,
+                       0.08, 2.0, torch.tensor([1.0, 1.0, 1.0, 0.0], device=x_dom.device),
+                       graphed=True)
+    try:
+        first = adam(theta0, b)  # eager: the warm-up
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            second = adam(theta0, b)  # captures, then replays
+            third = adam(theta0, b)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert adam.graph is not None
+        assert torch.equal(second, first) and torch.equal(third, first)
+    finally:
+        adam.close()

@@ -152,38 +152,45 @@ def test_nlml_gradient_matches_jax_and_finite_differences(data, params):
         assert np.isclose(got[i], fd, rtol=5e-2, atol=5e-2), (i, got[i], fd)
 
 
-def test_adam_steps_match_optax(data):
+@pytest.mark.parametrize("R", [1, 3])
+def test_adam_steps_match_optax(data, R):
     """12 Adam steps of the MAP objective from the same theta0 with the
-    same fixed b: the port's torch.optim.Adam against optax.adam over the
-    JAX package's objective, nugget frozen."""
+    same fixed b, on a batch of R restarts: the port's batched Adam
+    (optax's form on the batch) against vmapped optax.adam over the JAX
+    package's objective, nugget frozen."""
     eq_j, x_dom, x_bdy = data
     steps, lr, prior = 12, 0.08, 2.0
-    b = np.array(jax.random.normal(jax.random.PRNGKey(2), (4 * N + NB,)))
-    theta0 = jm._params_to_theta(1.0, 1.0, 3.0, 1e-2)
+    b = np.array(jax.random.normal(jax.random.PRNGKey(2), (R, 4 * N + NB)))
+    theta0 = np.stack([jm._params_to_theta(1.0, 1.0, 3.0, 1e-2),
+                       jm._params_to_theta(1.3, 0.7, 5.0, 3e-2),
+                       jm._params_to_theta(0.5, 1.0, 10.0, 1e-2)][:R])
     mask = np.array([1.0, 1.0, 1.0, 0.0], np.float32)
 
-    nlml_j = _jax_nlml(eq_j, jnp.asarray(x_dom), jnp.asarray(x_bdy), jnp.asarray(b))
-    anchor = jnp.asarray(theta0)
-
-    def objective(theta):
+    def objective(theta, b_i, anchor):
+        nlml_j = _jax_nlml(eq_j, jnp.asarray(x_dom), jnp.asarray(x_bdy), b_i)
         return nlml_j(theta) + 0.5 * prior * jnp.sum((theta - anchor) ** 2)
 
     opt = optax.adam(lr)
-    theta = jnp.asarray(theta0)
-    state = opt.init(theta)
-    for _ in range(steps):
-        g = jax.grad(objective)(theta)
+
+    def one(theta, state, b_i, anchor):
+        g = jax.grad(objective)(theta, b_i, anchor)
         g = jnp.where(jnp.isfinite(g), g, 0.0) * mask
         updates, state = opt.update(g, state, theta)
-        theta = optax.apply_updates(theta, updates)
+        return optax.apply_updates(theta, updates), state
+
+    theta = jnp.asarray(theta0)
+    state = jax.vmap(opt.init)(theta)
+    for _ in range(steps):
+        theta, state = jax.vmap(one)(theta, state, jnp.asarray(b), jnp.asarray(theta0))
 
     sigma = float(eq_j.sigma())
-    xd, xb, bt = _t(x_dom), _t(x_bdy), _t(b)
-    got = pm._descend(_t(theta0), _t(theta0),
-                      lambda t: pm._nlml(t, bt, xd, xb, sigma, D),
-                      steps, lr, prior, _t(mask))
+    xd, xb = _t(x_dom), _t(x_bdy)
+    adam = pm._MapAdam(lambda t, bb: pm._nlml(t, bb, xd, xb, sigma, D), _t(theta0),
+                       steps, lr, prior, _t(mask), graphed=False)
+    got = adam(_t(theta0), _t(b))
+    assert got.shape == (R, 4)
     np.testing.assert_allclose(got.numpy(), np.asarray(theta), rtol=1e-4, atol=1e-6)
-    assert got[3] == _t(theta0)[3]  # the frozen nugget
+    assert torch.equal(got[:, 3], _t(theta0)[:, 3])  # the frozen nugget
 
 
 def _configs_close(a, b, rtol):
