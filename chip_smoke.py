@@ -99,14 +99,18 @@ Phases, each printing its own lines:
               atol 1e-5 against world 1) and on a 1 x 2 mesh (the training
               rows split; rtol 2e-3, atol 2e-4), and one dense train with
               the Gram's rows split, each rank's kernel launches.
-  13. bf16:   the bf16-operand kernel variant against posterior_block with
-              bf16 operands, all four specialisations, at the bench GP's
-              and at phase 5's full-history shapes with trained weights, at
-              2e-4, two launches bitwise equal; its distance from the
-              float32 kernel; the flagless full-history runner with --bf16
-              (into results/smoke_bf16/) against phase 5's float32 run
-              (|GP_bf16 - GP_fp32| < 0.25 GP_fp32, SCaSML < GP), its bf16
-              kernel launches.
+  13. bf16:   the bf16-operand kernel variant (x.y on the tensor cores)
+              against posterior_block with bf16 operands, all four
+              specialisations, at the bench GP's and at phase 5's
+              full-history shapes with trained weights (F = 21), on phase
+              6's tuned Sine GP at its shapes (F = 101) and, after phase 15,
+              on high_dim's GP and rows (F = 251), at 2e-4, two launches
+              bitwise equal and a CUDA-graph replay bitwise equal to the
+              eager call; its device time beside the float32 kernel's on
+              the same rows and its distance from it; the flagless
+              full-history runner with --bf16 (into results/smoke_bf16/)
+              against phase 5's float32 run (|GP_bf16 - GP_fp32| < 0.25
+              GP_fp32, SCaSML < GP), its bf16 kernel launches.
   14. parity: laplacian='subset' with and without parity_fp16 on the bench
               points (the biased Gram, the fp64 eigh on the card, Newton):
               times, GP and quadrature ScaSML (2, 2) rel-L2; terminal_crn
@@ -468,7 +472,8 @@ def report_run(tag, smi, result, launches, sca, tune_s=None):
 
 def extra_phase(dev, smi):
     """Phase 6: SineNonlinear, HJB (mixture and coarse rbf) and AllenCahn
-    at d=100; returns the Sine kernel records for the JSON line."""
+    at d=100; returns the Sine kernel records for the JSON line, and the
+    tuned Sine GP's geometry and state."""
     import torch
 
     import scasml_gp_torch as port
@@ -528,6 +533,7 @@ def extra_phase(dev, smi):
         check(tune_launches.get(flags, 0) > 0 and run_launches.get(flags, 0) > 0,
               f"Sine: the kernel {flags} was not launched in the tune and run")
     st = gp.state
+    sine = (eq.geometry(), st)  # for phase 13's bf16 cases at F = 101
     fused = st.fused_inputs()
     gen_x = torch.Generator(device=dev).manual_seed(6)
     records = {}
@@ -627,7 +633,7 @@ def extra_phase(dev, smi):
     feature_ms(f"AllenCahn d={EXTRA_D} mixture_features", lambda x, need:
                mixture_features(x, gp.state.right_vector, gp.state.sol, gp.sig2,
                                 eq.T, EXTRA_D, need, need), 10800, eq)
-    return records
+    return records, sine
 
 
 FITML_DIR = "results/smoke_fitml"
@@ -1505,17 +1511,76 @@ def mesh_child(rank, port):
 
 # Phase 13.
 BF16_DIR = "results/smoke_bf16"
+BF16_SINE_SEED = 22
 
 
-def bf16_phase(dev, smi, bench, tuned_state):
-    """Phase 13: the bf16-operand kernel variant against its plain version
-    at the bench GP's and at phase 5's full-history shapes, its distance
-    from the float32 kernel, and the flagless full-history runner with
-    --bf16 against phase 5's float32 run.  Returns the kernel records."""
+def graph_replay_is_bitwise(call):
+    """Capture call() (one kernel call) in a CUDA graph, as the captured
+    rollouts capture it, and replay it twice: whether every replay's outputs
+    equal the eager call's bit for bit."""
+    import torch
+
+    eager = call()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    same = True
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        same &= all(a is None or torch.equal(a, b) for a, b in zip(out, eager))
+    return same
+
+
+def bf16_case(smi, where, x, train, d, flags, f16, f32):
+    """The bf16 variant on x against its plain version (posterior_block with
+    bf16 operands; 2e-4, two launches bitwise equal) and replayed in a CUDA
+    graph (bitwise the eager call); its record, with the float32 kernel's
+    device time on the same rows and the two kernels' distance."""
     import torch
 
     from scasml_gp_torch.gp import fused_posterior as fp
     from scasml_gp_torch.gp.posterior import posterior_block
+    from scasml_gp_torch.measure import event_ms
+
+    n = x.shape[0]
+    errs = compare_kernel(x, f16, *train, d, flags, f"bf16 {where} n={n}", repeat=True)
+    rec = kernel_record(x, f16, flags, lambda: posterior_block(
+        x, *train, d, *flags, operand_dtype=torch.bfloat16), errs)
+    check(graph_replay_is_bitwise(lambda: fp.fused_posterior(x, f16, *flags)),
+          f"bf16 {where} n={n} flags {flags}: a graph replay differs from the eager call")
+    rec["graph_replay_bitwise"] = True
+    rec["float32_device_ms"] = event_ms(lambda: fp.fused_posterior(x, f32, *flags),
+                                        device_bound=True)
+    rec["float32_over_bf16"] = rec["float32_device_ms"] / rec["device_ms"]
+    a, b = fp.fused_posterior(x, f16, *flags), fp.fused_posterior(x, f32, *flags)
+    rec["vs_float32"] = {
+        name: {"max_abs": float((u - v).abs().max()),
+               "rel_l2": float((u - v).norm() / v.norm())}
+        for name, u, v in zip(a._fields, a, b) if v is not None}
+    print(f"[bf16] {smi}; {where} F={d + 1} (want_grad={flags[0]:d}, want_ops={flags[1]:d}) "
+          f"n={n}: {describe(rec)}; float32 kernel device {rec['float32_device_ms']:.4f} ms "
+          f"({rec['float32_over_bf16']:.2f}x the bf16 time); graph replay bitwise; against "
+          "the float32 kernel: " + ", ".join(
+              f"{k} rel {v['rel_l2']:.3g} (max {v['max_abs']:.3g})"
+              for k, v in rec["vs_float32"].items()), flush=True)
+    return rec
+
+
+def bf16_phase(dev, smi, bench, tuned_state, sine):
+    """Phase 13: the bf16-operand kernel variant against its plain version
+    at the bench GP's and at phase 5's full-history shapes (F = 21) and on
+    phase 6's tuned Sine GP (F = 101), its distance from the float32
+    kernel, and the flagless full-history runner with --bf16 against
+    phase 5's float32 run.  Returns the kernel records."""
+    import torch
+
+    from scasml_gp_torch.gp import fused_posterior as fp
     from scasml_gp_torch.harness import runner
 
     bf16 = torch.bfloat16
@@ -1534,20 +1599,16 @@ def bf16_phase(dev, smi, bench, tuned_state):
         f32 = fp.prepare_inputs(xd, xb, rv, gm, D)
         for flags, n in rows.items():
             x = geom.sample_domain(gen, n, device=dev)
-            errs = compare_kernel(x, f16, xd, xb, rv, gm, D, flags,
-                                  f"bf16 {where} n={n}", repeat=True)
-            rec = kernel_record(x, f16, flags, lambda: posterior_block(
-                x, xd, xb, rv, gm, D, *flags, operand_dtype=bf16), errs)
-            a, b = fp.fused_posterior(x, f16, *flags), fp.fused_posterior(x, f32, *flags)
-            rec["vs_float32"] = {
-                name: {"max_abs": float((u - v).abs().max()),
-                       "rel_l2": float((u - v).norm() / v.norm())}
-                for name, u, v in zip(a._fields, a, b) if v is not None}
-            records[where, flags] = rec
-            print(f"[bf16] {smi}; {where} (want_grad={flags[0]:d}, want_ops={flags[1]:d}) "
-                  f"n={n}: {describe(rec)}; against the float32 kernel: " + ", ".join(
-                      f"{k} rel {v['rel_l2']:.3g} (max {v['max_abs']:.3g})"
-                      for k, v in rec["vs_float32"].items()), flush=True)
+            records[where, flags] = bf16_case(smi, where, x, (xd, xb, rv, gm), D, flags,
+                                              f16, f32)
+    sine_geom, st = sine
+    gen = torch.Generator(device=dev).manual_seed(BF16_SINE_SEED)
+    for flags, n in EXTRA_ROWS.items():
+        x = sine_geom.sample_domain(gen, n, device=dev)
+        records["sine", flags] = bf16_case(
+            smi, f"tuned Sine GP d={EXTRA_D}", x,
+            (st.x_dom, st.x_bdy, st.right_vector, st.gamma), EXTRA_D, flags,
+            st.fused_inputs(bf16), st.fused_inputs())
 
     with open(os.path.join(RUN_DIR, "GradDependentNonlinear", f"{D}d", "full_history",
                            "SimpleUniform", "metrics.json")) as fh:
@@ -1574,6 +1635,25 @@ def bf16_phase(dev, smi, bench, tuned_state):
         check(launches16.get(flags, 0) > 0, f"the bf16 run never launched the bf16 kernel {flags}")
     for (where, flags), rec in records.items():
         rec["launches"] = launches16.get(flags, 0) if where == "bench" else None
+    return records
+
+
+def bf16_high_d_cases(smi, high_d):
+    """Phase 13 at F = 251, run after phase 15 on the GP that high_dim
+    grad_dep trained: the bf16 variant on the rows of the largest call of
+    each specialisation that high_dim launched (grad+ops on the gradient
+    call's rows), as bf16_case.  Returns the records."""
+    import torch
+
+    st, launched = high_d
+    train = (st.x_dom, st.x_bdy, st.right_vector, st.gamma)
+    records = {}
+    for flags in HIGH_D_FLAGS:
+        x = launched[flags if flags in launched else (True, False)][0]
+        rec = bf16_case(smi, f"high_dim GP d={HIGH_D}", x, train, HIGH_D, flags,
+                        st.fused_inputs(torch.bfloat16), st.fused_inputs())
+        rec["launches"] = None
+        records["high_dim", flags] = rec
     return records
 
 
@@ -1686,7 +1766,8 @@ def drivers_phase(smi):
     """Phase 15: the experiment drivers (scasml_gp_torch.scripts) through
     their mains, and the kernel at F = 251 on high_dim grad_dep's trained GP
     and the rows it launched, against its plain version (and both against a
-    float64 evaluation).  Returns the F = 251 kernel records."""
+    float64 evaluation).  Returns the F = 251 kernel records, the run_all
+    row's launches, and high_dim's GP state with the rows it launched."""
     import torch
 
     from scasml_gp_torch.gp import fused_posterior as fp
@@ -1786,7 +1867,7 @@ def drivers_phase(smi):
         records[flags] = rec
         print(f"[drivers] {smi}; kernel (want_grad={flags[0]:d}, want_ops={flags[1]:d}) "
               f"n={n}, F={HIGH_D + 1}, high_dim's GP and rows: {describe(rec)}", flush=True)
-    return records, {f: campaign_launches.get(f, 0) for f in MAIN_SPECS}
+    return records, {f: campaign_launches.get(f, 0) for f in MAIN_SPECS}, (st, launched)
 
 
 # Phase 16.  The captured rollouts (picard/graphs.py) against eager ones.
@@ -1919,6 +2000,21 @@ def main():
             print(f"[build] ptxas: {kernel}: {m.group(1)} registers, "
                   f"{spill_bytes} bytes spill stores", flush=True)
     print(f"[build] specialisations that spill: {spills}", flush=True)
+    # SASS: the bf16 specialisations' x.y on the tensor cores (bf16 HMMA with
+    # float32 accumulators), none in the float32 ones
+    sass = subprocess.run(
+        [os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump"), "-sass", path],
+        capture_output=True, text=True, timeout=300, check=True).stdout
+    hmma = {}
+    for m in re.finditer(r"Function : \S*fused_posterior_kernelILb(\d)ELb(\d)ELi(\d+)ELb(\d)E"
+                         r"\S*\n(.*?)(?=\n\s*Function : |\Z)", sass, re.S):
+        hmma[m.group(1, 2, 3, 4)] = len(re.findall(r"HMMA\.16816\.F32\.BF16", m.group(5)))
+    check(len(hmma) == 20, f"{len(hmma)} kernel specialisations in the SASS, expected 20")
+    check(all((n > 0) == (k[3] == "1") for k, n in hmma.items()),
+          f"bf16 HMMA instructions by (grad, ops, NC, bf16): {hmma}")
+    print("[build] SASS: bf16 HMMA (mma.sync m16n8k16, float32 accumulators) in every bf16 "
+          f"specialisation ({min(n for k, n in hmma.items() if k[3] == '1')} each or more), "
+          "none in the float32 ones", flush=True)
 
     # The bench workload's GP, trained once here: its representer weights
     # are the values the kernel meets on the main path.  (Random N(0, 1)
@@ -2014,7 +2110,7 @@ def main():
     fh, tuned, tuned_gp = runner_phase(dev, smi)
 
     # 6. the three other PDE families at d=100
-    extra = extra_phase(dev, smi)
+    extra, sine = extra_phase(dev, smi)
 
     # 7. --fit-ml at d=20
     fit_ml = fit_ml_phase(dev, smi)
@@ -2035,13 +2131,16 @@ def main():
     mesh_launches = mesh_phase(dev, smi, gp, x_dom, x_bdy, x_test)
 
     # 13. the bf16-operand kernel variant and runner --bf16
-    bf16 = bf16_phase(dev, smi, (x_dom, x_bdy, r, gamma, geom), tuned_gp.state)
+    bf16 = bf16_phase(dev, smi, (x_dom, x_bdy, r, gamma, geom), tuned_gp.state, sine)
 
     # 14. the parity modes and probes
     parity_phase(dev, smi, gp, x_dom, x_bdy, x_test)
 
     # 15. the experiment drivers, and the kernel at F = 251
-    wide, campaign_launches = drivers_phase(smi)
+    wide, campaign_launches, high_d = drivers_phase(smi)
+
+    # 13, at F = 251: the bf16 variant on the GP and rows of phase 15's high_dim
+    bf16 |= bf16_high_d_cases(smi, high_d)
 
     # 16. the captured rollouts against eager ones
     graphs_phase(dev, smi, gp, x_test, tuned_gp)
@@ -2083,9 +2182,12 @@ def main():
                                  "bound_by", "share_of_bound", "library_ms", "device_ms",
                                  "rows", "splits", "vs_float32")},
             "full_history": bf16["full_history", f],
+            "sine_d100": bf16["sine", f],
+            "high_dim_d250": bf16["high_dim", f],
         })
-    kernels[-2]["with_ops"] = {"bench": bf16["bench", (True, True)],
-                               "full_history": bf16["full_history", (True, True)]}
+    kernels[-2]["with_ops"] = {where: bf16[key, (True, True)] for where, key in (
+        ("bench", "bench"), ("full_history", "full_history"), ("sine_d100", "sine"),
+        ("high_dim_d250", "high_dim"))}
     for f, (caller, _) in MAIN_SPECS.items():
         kernels.append({
             "name": f"fused_posterior[high_dim F={HIGH_D + 1} {caller}: "

@@ -69,17 +69,38 @@
 //
 // The bf16-operand variant (BF16 = true; PrecisionPolicy.gram = 'bfloat16',
 // the JAX package's operand_dtype) computes the pair statistics from x and y
-// rounded to bfloat16 and back, as gp/kernels.py pair_stats does: the
-// prologue rounds the x tile and its stats, the x.y loop rounds each y value
-// as it reads it, and the records |y|^2, spatial sum and time come from the
-// rounded y (prepare_inputs with operand_dtype bfloat16).  A product of two
-// bf16 values is exact in float32, so this is a bf16 product with float32
-// accumulation.  The gradient's x * rowsum - A_sp . Y and A_t . y_t terms
-// keep the unrounded float32 x (read from global memory in the epilogue) and
-// training rows (the y tile), as the JAX posterior does.  y is rounded in
-// the loop rather than staged as a second rounded tile: a second tile does
-// not fit in shared memory at F = 256, and the loop's extra conversions are
-// a few instructions per 16 FMAs.
+// rounded to bfloat16, as gp/kernels.py pair_stats does: a product of two
+// bf16 values is exact in float32, so x.y is a bf16 product with float32
+// accumulation, and |x|^2, |y|^2, the spatial sums and the time come from
+// the rounded rows (the y side from prepare_inputs with operand_dtype
+// bfloat16).  Its x.y runs on the tensor cores, the one thing bf16 operands
+// buy on Hopper: with x.y at the 989 TFLOP/s bf16 rate, the call's bound is
+// its float32 epilogue (25 operations a pair for u, 45 + 2F with the
+// gradient, 52 more for dt/div/lap) over 67 TFLOP/s.
+//  - x.y is mma.sync.m16n8k16 bf16 with float32 accumulators, its operands
+//    loaded by ldmatrix.  Each of the 8 warps owns a 16 x 32 slab of the
+//    64 x 64 tile (four n8 tiles a k-step).  The depth is F padded with zeros
+//    to Fp, a multiple of 16, which adds exactly zero.  Not wgmma: with x.y
+//    on the tensor cores the float32 epilogue sets the pace at every F.
+//  - The operands are row-major bf16 tiles in shared memory, rows padded by
+//    8 values (16 bytes) so that ldmatrix's eight row addresses fall in
+//    distinct banks: the block's x rows, rounded once in the prologue, and
+//    the training rows, rounded once per trained state (prepare_inputs'
+//    rows_bf16, (ld, Fp)) and copied with cp.async beside the records.
+//    Without the gradient the y tile is double-buffered like the records.
+//    With it, one y tile fits beside the float32 feature rows that A_sp . Y
+//    and A_t . y_t read (at F = 256 the block takes 223.5 KB): its copy for
+//    tile t + 1 starts once the A_sp tile is complete, when every warp is
+//    done with tile t's products, and runs under A_sp . Y.
+//  - The epilogue works on the mma fragments where they lie: each lane
+//    holds 2 rows x 8 training rows of its warp's slab and runs the same
+//    per-pair code (column_pairs) as the float32 micro-tile, so a warp goes
+//    from its products to its pairs without waiting for the block.  After
+//    the tile loop each row's sums are added over its 4 lanes and then over
+//    its two warps through shared memory, in a fixed order.
+//  - The gradient's x * rowsum - A_sp . Y and A_t . y_t terms keep the
+//    unrounded float32 x (read from global memory in the epilogue) and
+//    training rows (the float32 y tile), as the JAX posterior does.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -95,6 +116,7 @@ constexpr int kLdA = kBJ + 4;    // row stride of the A_sp tile
 constexpr int kRec = 7;          // record rows after the F feature rows
 constexpr int kStages = 2;
 constexpr int kMaxFeatures = 256;
+constexpr int kPadB = 8;         // bf16 padding of a row of the bf16 tiles
 
 // Floats of one call's outputs, laid out [u (n) | grad (n, F) | dt, div,
 // lap (n each)]: the PosteriorOut buffer, and one split's slice of scratch.
@@ -106,17 +128,28 @@ __host__ __device__ __forceinline__ int stage_floats(int F) {
     return (F + kRec) * kLdY;
 }
 
-__host__ __device__ __forceinline__ size_t smem_bytes(bool grad, int F) {
+// The bf16 variant's x.y depth, and the row stride of its bf16 tiles.
+__host__ __device__ __forceinline__ int padded_depth(int F) { return (F + 15) / 16 * 16; }
+__host__ __device__ __forceinline__ int bf16_row(int F) { return padded_depth(F) + kPadB; }
+
+// One stage of the bf16 variant: the records, after the F float32 feature
+// rows where the gradient reads them.
+__host__ __device__ __forceinline__ int bf16_stage_floats(bool grad, int F) {
+    return ((grad ? F : 0) + kRec) * kLdY;
+}
+
+__host__ __device__ __forceinline__ size_t smem_bytes(bool grad, int F, bool bf16) {
+    if (bf16) {
+        // x stats, the stages, A_sp with the gradient, then the bf16 x tile
+        // and the bf16 y tiles: one with the gradient, two without
+        const size_t floats = 3 * kBI + kStages * (size_t)bf16_stage_floats(grad, F) +
+                              (grad ? (size_t)kBI * kLdA : 0);
+        return floats * sizeof(float) + (size_t)(kBI + (grad ? 1 : kStages) * kBJ) *
+                                            bf16_row(F) * sizeof(__nv_bfloat16);
+    }
     const size_t floats = (size_t)F * kLdX + 3 * kBI + kStages * (size_t)stage_floats(F) +
                           (grad ? (size_t)kBI * kLdA : 0);
     return floats * sizeof(float);
-}
-
-// The operand as the bf16 policy sees it: rounded to bfloat16 (nearest
-// even) and back, or unchanged.
-template <bool BF16>
-__device__ __forceinline__ float operand(float v) {
-    return BF16 ? __bfloat162float(__float2bfloat16_rn(v)) : v;
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -128,6 +161,67 @@ __device__ __forceinline__ void cp_async_commit() {
 }
 __device__ __forceinline__ void cp_async_wait_all() {
     asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Four 8 x 8 bf16 matrices from shared memory; lane l gives the address of
+// row l % 8 of matrix l / 8 and receives row l / 4, columns 2 (l % 4) and
+// 2 (l % 4) + 1 of each.
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], unsigned addr) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(addr)
+                 : "memory");
+}
+
+// c (16 x 8, float32) += a (16 x 16, bf16, row-major) . b (16 x 8, bf16,
+// column-major), the fragments in mma.sync's layout.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Start the copies of training rows j0 .. j0 + kBJ - 1 of rows_bf16 (Fp
+// values each) into the bf16 y tile, 16 bytes a thread.
+__device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* yb,
+                                               const __nv_bfloat16* __restrict__ rows,
+                                               int Fp, int j0, int tid) {
+    const int per_row = Fp / 8, ldb = Fp + kPadB;
+    for (int c = tid; c < kBJ * per_row; c += kThreads) {
+        const int j = c / per_row, part = c - j * per_row;
+        cp_async16(yb + j * ldb + part * 8, rows + (size_t)(j0 + j) * Fp + part * 8);
+    }
+}
+
+// x.y of this warp's 16 x 32 slab of the tile on the tensor cores, rows
+// row0 .. row0 + 15 and columns col0 .. col0 + 31, as four n8 tiles a k-step
+// of 16: c[t] is mma.sync's accumulator of n8 tile t, rows lane / 4 and
+// lane / 4 + 8, columns 8 t + 2 (lane % 4) + {0, 1}, as {c0, c1, c2, c3}.
+__device__ __forceinline__ void tile_dot_mma(const __nv_bfloat16* xb, const __nv_bfloat16* yb,
+                                             int Fp, int lane, int row0, int col0,
+                                             float (&c)[4][4]) {
+    const int ldb = Fp + kPadB;
+    // A: matrices (rows 0-7 | 8-15) x (k 0-7 | 8-15); B, per pair of n8
+    // tiles: (tile 0 | tile 1) x (k 0-7 | 8-15)
+    const unsigned a_addr = (unsigned)__cvta_generic_to_shared(
+        xb + (row0 + (lane & 15)) * ldb + (lane >> 4) * 8);
+    const unsigned b_addr = (unsigned)__cvta_generic_to_shared(
+        yb + (col0 + (lane >> 4) * 8 + (lane & 7)) * ldb + ((lane >> 3) & 1) * 8);
+#pragma unroll
+    for (int t = 0; t < 4; ++t) c[t][0] = c[t][1] = c[t][2] = c[t][3] = 0.f;
+    for (int k = 0; k < Fp; k += 16) {
+        unsigned a[4], b[4];
+        ldmatrix_x4(a, a_addr + 2 * k);
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+            ldmatrix_x4(b, b_addr + 2 * (16 * p * ldb + k));
+            mma_bf16(c[2 * p], a, b[0], b[1]);
+            mma_bf16(c[2 * p + 1], a, b[2], b[3]);
+        }
+    }
 }
 
 // Sum over the 16 lanes that share a row (lane bits 0-3), in a fixed order;
@@ -149,6 +243,74 @@ __device__ __forceinline__ void load_tile(float* ys, const float* __restrict__ c
     }
 }
 
+// Running sums of R evaluation rows over their pairs: u, the operators
+// (OPS), and the gradient's row sums (GRAD).
+template <int R>
+struct RowSums {
+    float u[R], dt[R], div[R], lap[R];
+    float sp[R], t[R], c[R], e[R], yt[R];
+};
+
+// The constants of the pair polynomials, from gamma and d.
+struct Poly {
+    float gs, gt, gr, df, G, beta, gs2, lap0, ll0, llq, lls, ngs, ngt, ngr;
+};
+
+// The bf16 variant's pairs of one training row of the tile with R
+// evaluation rows: the row's records (r1, r3, r4, r5, |y|^2, spatial sum,
+// time) at rec, kLdY apart, and yt_g, its unrounded time; each pair's x.y
+// in xy and its evaluation row's stats; each pair's A_sp goes to As,
+// as_step apart (GRAD only).  The same arithmetic as the float32 micro-tile
+// in the kernel, which keeps its own copy so that the float32
+// specialisations compile to the code they always had.
+template <bool GRAD, bool OPS, int R>
+__device__ __forceinline__ void column_pairs(const Poly& P, const float* rec, float yt_g,
+                                             const float (&xy)[R], const float (&xn2)[R],
+                                             const float (&xsum)[R], const float (&xt)[R],
+                                             RowSums<R>& a, float* As, int as_step) {
+    const float r1 = rec[0], r3 = rec[kLdY], r4 = rec[2 * kLdY];
+    const float r5 = rec[3 * kLdY], yn2 = rec[4 * kLdY];
+    const float ysum = rec[5 * kLdY], yt = rec[6 * kLdY];
+    // The training row's factors, shared by its pairs: P_u's dt and s
+    // coefficients, and the r3 terms of A_sp, B_s and P_div.
+    const float c4 = P.gt * r4, c5 = P.G * r5;
+    const float c3s = 2.0f * P.gs2 * r3, c3r = 2.0f * P.beta * r3;
+    const float c3d = 2.0f * P.G * r3, c5d = P.df * c5, c5l = 2.0f * P.G * c5;
+#pragma unroll
+    for (int ii = 0; ii < R; ++ii) {
+        const float r2 = fmaxf(fmaf(-2.0f, xy[ii], xn2[ii] + yn2), 0.0f);
+        const float dt = xt[ii] - yt;
+        const float sd = xsum[ii] - ysum;
+        const float dt2 = dt * dt;
+        const float s2 = sd * sd;
+        const float q = fmaxf(r2 - dt2, 0.0f);
+        const float kap = expf(fmaf(P.ngs, q, fmaf(P.ngr, s2, P.ngt * dt2)));
+        const float lapf = fmaf(P.gs2, q, fmaf(P.beta, s2, -P.lap0));
+        const float Pu = fmaf(lapf, r3, fmaf(dt, c4, fmaf(sd, c5, r1)));
+        const float kPu = kap * Pu;
+        a.u[ii] += kPu;
+        if (GRAD) {
+            const float Asp = fmaf(-P.gs, kPu, kap * c3s);
+            const float Bs = fmaf(-P.gr, kPu, kap * c3r);
+            a.sp[ii] += Asp;
+            a.t[ii] += kPu;                      // times -gt after the loop
+            a.yt[ii] = fmaf(kPu, yt_g, a.yt[ii]);  // times -gt after the loop
+            a.c[ii] += fmaf(Bs, sd, kap * c5);
+            a.e[ii] = fmaf(kap, c4, a.e[ii]);
+            As[ii * as_step] = Asp;
+        }
+        if (OPS) {
+            // The operators' polynomials written through P_u: the same
+            // functions as the plain version's P_dt, P_div and P_lap, in
+            // fewer operations.
+            const float LLq = fmaf(-P.llq, q, fmaf(-P.lls, s2, P.ll0));  // LL - lapf^2
+            a.dt[ii] = fmaf(kap, fmaf(-P.gt * dt, Pu, c4), a.dt[ii]);
+            a.div[ii] = fmaf(kap, fmaf(P.G * sd, c3d - Pu, c5d), a.div[ii]);
+            a.lap[ii] = fmaf(kap, fmaf(lapf, Pu, fmaf(LLq, r3, -sd * c5l)), a.lap[ii]);
+        }
+    }
+}
+
 // Blocks per SM the compiler must fit (registers <= 65536 / (256 * it)):
 // two, except where the gradient's accumulators need more than 128
 // registers without spilling (F > 129, or F > 65 with dt/div/lap too).
@@ -156,13 +318,25 @@ template <bool GRAD, bool OPS, int NC, bool BF16>
 __global__ void __launch_bounds__(kThreads, (GRAD && (NC >= 16 || (NC >= 8 && OPS))) ? 1 : 2)
 fused_posterior_kernel(const float* __restrict__ x, const float* __restrict__ cols,
                        int n, int ld, int F, int tiles,
-                       float gs, float gt, float gr, float* __restrict__ out) {
+                       float gs, float gt, float gr, float* __restrict__ out,
+                       const __nv_bfloat16* __restrict__ rows_bf16) {
     extern __shared__ __align__(16) float smem[];
+    // float32: the x tile, its stats, the stages, A_sp (GRAD only).  bf16:
+    // the stats, the stages (the records, after the float32 feature rows
+    // with GRAD), A_sp (GRAD only), the bf16 x tile and the bf16 y tiles
+    // (one with GRAD, a double buffer without).
     float* xs = smem;                    // (F, kLdX) this block's x rows, feature-major
-    float* xst = xs + F * kLdX;          // (3, kBI) |x|^2, spatial sum, time
+    float* xst = BF16 ? smem : xs + F * kLdX;  // (3, kBI) |x|^2, spatial sum, time
     float* stage0 = xst + 3 * kBI;       // kStages x (F + kRec, kLdY): y tile, then records
-    const int sf = stage_floats(F);
+    const int sf = BF16 ? bf16_stage_floats(GRAD, F) : stage_floats(F);
     float* As = stage0 + kStages * sf;   // (kBI, kLdA) A_sp of the tile (GRAD only)
+    const int Fp = padded_depth(F), ldb = Fp + kPadB;
+    __nv_bfloat16* const xb =            // (kBI, ldb), then (kBJ, ldb) a y stage
+        reinterpret_cast<__nv_bfloat16*>(As + (GRAD ? kBI * kLdA : 0));
+    __nv_bfloat16* const yb = xb + kBI * ldb;
+    // The bf16 stages hold the feature rows only where the gradient reads them.
+    const float* const cols_staged = cols + (BF16 && !GRAD ? (size_t)F * ld : 0);
+    const int F_staged = BF16 && !GRAD ? 0 : F;
 
     const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
     const int i0 = blockIdx.x * kBI;
@@ -171,28 +345,69 @@ fused_posterior_kernel(const float* __restrict__ x, const float* __restrict__ co
     const int t_end = (int)(((long long)(s + 1) * tiles) / S);
     const int d = F - 1;
 
-    if (t_begin < t_end) load_tile(stage0, cols, ld, F, t_begin * kBJ, tid);
+    if (t_begin < t_end) {
+        load_tile(stage0, cols_staged, ld, F_staged, t_begin * kBJ, tid);
+        if constexpr (BF16) load_tile_bf16(yb, rows_bf16, Fp, t_begin * kBJ, tid);
+    }
     cp_async_commit();
 
-    // Prologue: the x tile, transposed (rows past n are zero), then its stats.
-    const int lim = min(kBI, n - i0) * F;
-    const float* xg = x + (size_t)i0 * F;
-    for (int idx = tid; idx < kBI * F; idx += kThreads) {
-        const int i = idx / F, k = idx - i * F;
-        xs[k * kLdX + i] = idx < lim ? operand<BF16>(xg[idx]) : 0.f;
-    }
-    __syncthreads();
-    if (tid < kBI) {
+    if constexpr (BF16) {
+        // Prologue: the x tile rounded to bf16, row-major (rows past n and
+        // columns past F are zero), then the stats of the rounded rows,
+        // four threads a row, each a quarter of the columns.
+        const int rows = min(kBI, n - i0), di = kThreads / Fp, dk = kThreads - di * Fp;
+        int i = tid / Fp, k = tid - i * Fp;
+#pragma unroll 4
+        for (int idx = tid; idx < kBI * Fp; idx += kThreads) {
+            xb[i * ldb + k] =
+                __float2bfloat16_rn(i < rows && k < F ? x[(size_t)(i0 + i) * F + k] : 0.f);
+            i += di;
+            k += dk;
+            if (k >= Fp) {
+                k -= Fp;
+                ++i;
+            }
+        }
+        __syncthreads();
+        const __nv_bfloat16* const xr = xb + (tid >> 2) * ldb;
         float n2 = 0.f, sp = 0.f;
-        for (int k = 0; k < d; ++k) {
-            const float v = xs[k * kLdX + tid];
+        for (int j = tid & 3; j < d; j += 4) {
+            const float v = __bfloat162float(xr[j]);
             n2 = fmaf(v, v, n2);
             sp += v;
         }
-        const float tv = xs[d * kLdX + tid];
-        xst[tid] = fmaf(tv, tv, n2);
-        xst[kBI + tid] = sp;
-        xst[2 * kBI + tid] = tv;
+#pragma unroll
+        for (int off = 1; off < 4; off <<= 1) {
+            n2 += __shfl_xor_sync(0xffffffffu, n2, off);
+            sp += __shfl_xor_sync(0xffffffffu, sp, off);
+        }
+        if ((tid & 3) == 0) {
+            const float tv = __bfloat162float(xr[d]);
+            xst[tid >> 2] = fmaf(tv, tv, n2);
+            xst[kBI + (tid >> 2)] = sp;
+            xst[2 * kBI + (tid >> 2)] = tv;
+        }
+    } else {
+        // Prologue: the x tile, transposed (rows past n are zero), then its stats.
+        const int lim = min(kBI, n - i0) * F;
+        const float* xg = x + (size_t)i0 * F;
+        for (int idx = tid; idx < kBI * F; idx += kThreads) {
+            const int i = idx / F, k = idx - i * F;
+            xs[k * kLdX + i] = idx < lim ? xg[idx] : 0.f;
+        }
+        __syncthreads();
+        if (tid < kBI) {
+            float n2 = 0.f, sp = 0.f;
+            for (int k = 0; k < d; ++k) {
+                const float v = xs[k * kLdX + tid];
+                n2 = fmaf(v, v, n2);
+                sp += v;
+            }
+            const float tv = xs[d * kLdX + tid];
+            xst[tid] = fmaf(tv, tv, n2);
+            xst[kBI + tid] = sp;
+            xst[2 * kBI + tid] = tv;
+        }
     }
     __syncthreads();
 
@@ -205,6 +420,7 @@ fused_posterior_kernel(const float* __restrict__ x, const float* __restrict__ co
     const float llq = 4.0f * gs2 * gs;
     const float lls = 4.0f * (gs2 * gr + beta * G);
     const float ngs = -0.5f * gs, ngt = -0.5f * gt, ngr = -0.5f * gr;
+    const Poly P{gs, gt, gr, df, G, beta, gs2, lap0, ll0, llq, lls, ngs, ngt, ngr};
 
     float a_u[4], a_dt[4], a_div[4], a_lap[4];
     float a_sp[4], a_t[4], a_c[4], a_e[4], a_yt[4];
@@ -216,89 +432,133 @@ fused_posterior_kernel(const float* __restrict__ x, const float* __restrict__ co
 #pragma unroll
         for (int c = 0; c < (NC > 0 ? NC : 1); ++c) ay[ii][c] = 0.f;
     }
+    // bf16: lane (g, q) = (lane / 4, lane % 4) of warp w holds the mma
+    // fragments' pairs, rows row0 + g and row0 + g + 8 against columns
+    // col0 + 8 nt + 2 q + {0, 1}, and sums those two rows in b.
+    const int lane = tid & 31, warp = tid >> 5, g = lane >> 2, q = lane & 3;
+    const int row0 = (warp & 3) * 16, col0 = (warp >> 2) * 32;
+    RowSums<2> b;
+    float bx_n2[2], bx_sum[2], bx_t[2];
+    if constexpr (BF16) {
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+            b.u[rr] = b.dt[rr] = b.div[rr] = b.lap[rr] = 0.f;
+            b.sp[rr] = b.t[rr] = b.c[rr] = b.e[rr] = b.yt[rr] = 0.f;
+            const int i = row0 + g + 8 * rr;
+            bx_n2[rr] = xst[i];
+            bx_sum[rr] = xst[kBI + i];
+            bx_t[rr] = xst[2 * kBI + i];
+        }
+    }
 
     for (int t = t_begin; t < t_end; ++t) {
         const int buf = (t - t_begin) & 1;
         const float* ys = stage0 + buf * sf;
-        const float* rec = ys + F * kLdY + tx * 4;  // this thread's 4 records, row by row
+        const float* rec = ys + F_staged * kLdY + tx * 4;  // this thread's 4 records, row by row
         cp_async_wait_all();
         __syncthreads();  // tile t has landed; every thread is done with tile t - 1
-        if (t + 1 < t_end) load_tile(stage0 + (buf ^ 1) * sf, cols, ld, F, (t + 1) * kBJ, tid);
+        if (t + 1 < t_end)
+            load_tile(stage0 + (buf ^ 1) * sf, cols_staged, ld, F_staged, (t + 1) * kBJ, tid);
+        if constexpr (BF16 && !GRAD) {
+            if (t + 1 < t_end)
+                load_tile_bf16(yb + (buf ^ 1) * kBJ * ldb, rows_bf16, Fp, (t + 1) * kBJ, tid);
+        }
         cp_async_commit();
 
-        float acc[4][4];
+        if constexpr (BF16) {
+            float c[4][4];
+            tile_dot_mma(xb, yb + (GRAD ? 0 : buf * kBJ * ldb), Fp, lane, row0, col0, c);
+            const float* const yrec = ys + F_staged * kLdY;
 #pragma unroll
-        for (int ii = 0; ii < 4; ++ii)
+            for (int nt = 0; nt < 4; ++nt) {
 #pragma unroll
-            for (int jj = 0; jj < 4; ++jj) acc[ii][jj] = 0.f;
-#pragma unroll 4
-        for (int k = 0; k < F; ++k) {
-            const float4 xv = *reinterpret_cast<const float4*>(xs + k * kLdX + ty * 4);
-            const float4 yv = *reinterpret_cast<const float4*>(ys + k * kLdY + tx * 4);
-            const float xa[4] = {xv.x, xv.y, xv.z, xv.w};
-            const float ya[4] = {operand<BF16>(yv.x), operand<BF16>(yv.y),
-                                 operand<BF16>(yv.z), operand<BF16>(yv.w)};
+                for (int cc = 0; cc < 2; ++cc) {
+                    const int col = col0 + 8 * nt + 2 * q + cc;
+                    const float xy[2] = {c[nt][cc], c[nt][2 + cc]};
+                    // A_t . y_t takes the unrounded time (the tile's row d)
+                    column_pairs<GRAD, OPS, 2>(P, yrec + col, GRAD ? ys[d * kLdY + col] : 0.f,
+                                               xy, bx_n2, bx_sum, bx_t, b,
+                                               As + (row0 + g) * kLdA + col, 8 * kLdA);
+                }
+            }
+        } else {
+            float acc[4][4];
 #pragma unroll
             for (int ii = 0; ii < 4; ++ii)
 #pragma unroll
-                for (int jj = 0; jj < 4; ++jj) acc[ii][jj] = fmaf(xa[ii], ya[jj], acc[ii][jj]);
-        }
+                for (int jj = 0; jj < 4; ++jj) acc[ii][jj] = 0.f;
+#pragma unroll 4
+            for (int k = 0; k < F; ++k) {
+                const float4 xv = *reinterpret_cast<const float4*>(xs + k * kLdX + ty * 4);
+                const float4 yv = *reinterpret_cast<const float4*>(ys + k * kLdY + tx * 4);
+                const float xa[4] = {xv.x, xv.y, xv.z, xv.w};
+                const float ya[4] = {yv.x, yv.y, yv.z, yv.w};
+#pragma unroll
+                for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+                    for (int jj = 0; jj < 4; ++jj) acc[ii][jj] = fmaf(xa[ii], ya[jj], acc[ii][jj]);
+            }
 
-        const float4 xn2v = *reinterpret_cast<const float4*>(xst + ty * 4);
-        const float4 xsumv = *reinterpret_cast<const float4*>(xst + kBI + ty * 4);
-        const float4 xtv = *reinterpret_cast<const float4*>(xst + 2 * kBI + ty * 4);
-        const float xn2a[4] = {xn2v.x, xn2v.y, xn2v.z, xn2v.w};
-        const float xsuma[4] = {xsumv.x, xsumv.y, xsumv.z, xsumv.w};
-        const float xta[4] = {xtv.x, xtv.y, xtv.z, xtv.w};
+            const float4 xn2v = *reinterpret_cast<const float4*>(xst + ty * 4);
+            const float4 xsumv = *reinterpret_cast<const float4*>(xst + kBI + ty * 4);
+            const float4 xtv = *reinterpret_cast<const float4*>(xst + 2 * kBI + ty * 4);
+            const float xn2a[4] = {xn2v.x, xn2v.y, xn2v.z, xn2v.w};
+            const float xsuma[4] = {xsumv.x, xsumv.y, xsumv.z, xsumv.w};
+            const float xta[4] = {xtv.x, xtv.y, xtv.z, xtv.w};
 #pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-            const float r1 = rec[jj], r3 = rec[kLdY + jj], r4 = rec[2 * kLdY + jj];
-            const float r5 = rec[3 * kLdY + jj], yn2 = rec[4 * kLdY + jj];
-            const float ysum = rec[5 * kLdY + jj], yt = rec[6 * kLdY + jj];
-            // A_t . y_t takes the unrounded time (the tile's row d)
-            const float yt_g = BF16 ? ys[d * kLdY + tx * 4 + jj] : yt;
-            // The training row's factors, shared by its four pairs: P_u's
-            // dt and s coefficients, and the r3 terms of A_sp, B_s and P_div.
-            const float c4 = gt * r4, c5 = G * r5;
-            const float c3s = 2.0f * gs2 * r3, c3r = 2.0f * beta * r3;
-            const float c3d = 2.0f * G * r3, c5d = df * c5, c5l = 2.0f * G * c5;
+            for (int jj = 0; jj < 4; ++jj) {
+                const float r1 = rec[jj], r3 = rec[kLdY + jj], r4 = rec[2 * kLdY + jj];
+                const float r5 = rec[3 * kLdY + jj], yn2 = rec[4 * kLdY + jj];
+                const float ysum = rec[5 * kLdY + jj], yt = rec[6 * kLdY + jj];
+                // The training row's factors, shared by its four pairs: P_u's
+                // dt and s coefficients, and the r3 terms of A_sp, B_s and P_div.
+                const float c4 = gt * r4, c5 = G * r5;
+                const float c3s = 2.0f * gs2 * r3, c3r = 2.0f * beta * r3;
+                const float c3d = 2.0f * G * r3, c5d = df * c5, c5l = 2.0f * G * c5;
 #pragma unroll
-            for (int ii = 0; ii < 4; ++ii) {
-                const float r2 = fmaxf(fmaf(-2.0f, acc[ii][jj], xn2a[ii] + yn2), 0.0f);
-                const float dt = xta[ii] - yt;
-                const float sd = xsuma[ii] - ysum;
-                const float dt2 = dt * dt;
-                const float s2 = sd * sd;
-                const float q = fmaxf(r2 - dt2, 0.0f);
-                const float kap = expf(fmaf(ngs, q, fmaf(ngr, s2, ngt * dt2)));
-                const float lapf = fmaf(gs2, q, fmaf(beta, s2, -lap0));
-                const float Pu = fmaf(lapf, r3, fmaf(dt, c4, fmaf(sd, c5, r1)));
-                const float kPu = kap * Pu;
-                a_u[ii] += kPu;
-                if (GRAD) {
-                    const float Asp = fmaf(-gs, kPu, kap * c3s);
-                    const float Bs = fmaf(-gr, kPu, kap * c3r);
-                    a_sp[ii] += Asp;
-                    a_t[ii] += kPu;                      // times -gt after the loop
-                    a_yt[ii] = fmaf(kPu, yt_g, a_yt[ii]);  // times -gt after the loop
-                    a_c[ii] += fmaf(Bs, sd, kap * c5);
-                    a_e[ii] = fmaf(kap, c4, a_e[ii]);
-                    As[(ty * 4 + ii) * kLdA + tx * 4 + jj] = Asp;
-                }
-                if (OPS) {
-                    // The operators' polynomials written through P_u: the
-                    // same functions as the plain version's P_dt, P_div and
-                    // P_lap, in fewer operations.
-                    const float LLq = fmaf(-llq, q, fmaf(-lls, s2, ll0));  // LL - lapf^2
-                    a_dt[ii] = fmaf(kap, fmaf(-gt * dt, Pu, c4), a_dt[ii]);
-                    a_div[ii] = fmaf(kap, fmaf(G * sd, c3d - Pu, c5d), a_div[ii]);
-                    a_lap[ii] = fmaf(kap, fmaf(lapf, Pu, fmaf(LLq, r3, -sd * c5l)), a_lap[ii]);
+                for (int ii = 0; ii < 4; ++ii) {
+                    const float r2 = fmaxf(fmaf(-2.0f, acc[ii][jj], xn2a[ii] + yn2), 0.0f);
+                    const float dt = xta[ii] - yt;
+                    const float sd = xsuma[ii] - ysum;
+                    const float dt2 = dt * dt;
+                    const float s2 = sd * sd;
+                    const float q = fmaxf(r2 - dt2, 0.0f);
+                    const float kap = expf(fmaf(ngs, q, fmaf(ngr, s2, ngt * dt2)));
+                    const float lapf = fmaf(gs2, q, fmaf(beta, s2, -lap0));
+                    const float Pu = fmaf(lapf, r3, fmaf(dt, c4, fmaf(sd, c5, r1)));
+                    const float kPu = kap * Pu;
+                    a_u[ii] += kPu;
+                    if (GRAD) {
+                        const float Asp = fmaf(-gs, kPu, kap * c3s);
+                        const float Bs = fmaf(-gr, kPu, kap * c3r);
+                        a_sp[ii] += Asp;
+                        a_t[ii] += kPu;                    // times -gt after the loop
+                        a_yt[ii] = fmaf(kPu, yt, a_yt[ii]);  // times -gt after the loop
+                        a_c[ii] += fmaf(Bs, sd, kap * c5);
+                        a_e[ii] = fmaf(kap, c4, a_e[ii]);
+                        As[(ty * 4 + ii) * kLdA + tx * 4 + jj] = Asp;
+                    }
+                    if (OPS) {
+                        // The operators' polynomials written through P_u: the
+                        // same functions as the plain version's P_dt, P_div and
+                        // P_lap, in fewer operations.
+                        const float LLq = fmaf(-llq, q, fmaf(-lls, s2, ll0));  // LL - lapf^2
+                        a_dt[ii] = fmaf(kap, fmaf(-gt * dt, Pu, c4), a_dt[ii]);
+                        a_div[ii] = fmaf(kap, fmaf(G * sd, c3d - Pu, c5d), a_div[ii]);
+                        a_lap[ii] =
+                            fmaf(kap, fmaf(lapf, Pu, fmaf(LLq, r3, -sd * c5l)), a_lap[ii]);
+                    }
                 }
             }
         }
 
         if (GRAD) {
             __syncthreads();  // the whole A_sp tile is written
+            if constexpr (BF16) {
+                // every warp is done with the y tile: start the next one's copy
+                if (t + 1 < t_end) load_tile_bf16(yb, rows_bf16, Fp, (t + 1) * kBJ, tid);
+                cp_async_commit();
+            }
 #pragma unroll(NC >= 4 ? 1 : 2)  // at NC = 4 an unroll of 2 spills
             for (int j = 0; j < kBJ; j += 4) {
                 float4 a[4];
@@ -325,20 +585,60 @@ fused_posterior_kernel(const float* __restrict__ x, const float* __restrict__ co
         }
     }
 
+    if constexpr (BF16) {
+        // Each row's sums: over its 4 lanes, then its two column halves
+        // (warps w and w + 4) through shared memory, in a fixed order.
+        constexpr int kSums = GRAD ? 9 : OPS ? 4 : 1;
+        __syncthreads();  // every warp is done with the tiles
+        float* const red = stage0;  // (kSums, 2, kBI)
 #pragma unroll
-    for (int ii = 0; ii < 4; ++ii) {
-        a_u[ii] = row_group_sum(a_u[ii]);
-        if (OPS) {
-            a_dt[ii] = row_group_sum(a_dt[ii]);
-            a_div[ii] = row_group_sum(a_div[ii]);
-            a_lap[ii] = row_group_sum(a_lap[ii]);
+        for (int rr = 0; rr < 2; ++rr) {
+            const float v[9] = {b.u[rr], b.dt[rr], b.div[rr], b.lap[rr], b.sp[rr],
+                                b.t[rr], b.c[rr], b.e[rr], b.yt[rr]};
+#pragma unroll
+            for (int k = 0; k < kSums; ++k) {
+                if (!OPS && k >= 1 && k < 4) continue;
+                float sum = v[k];
+                sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+                sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+                if (q == 0) red[(2 * k + (warp >> 2)) * kBI + row0 + g + 8 * rr] = sum;
+            }
         }
-        if (GRAD) {
-            a_sp[ii] = row_group_sum(a_sp[ii]);
-            a_t[ii] = -gt * row_group_sum(a_t[ii]);
-            a_c[ii] = row_group_sum(a_c[ii]);
-            a_e[ii] = row_group_sum(a_e[ii]);
-            a_yt[ii] = -gt * row_group_sum(a_yt[ii]);
+        __syncthreads();
+        const auto total = [&](int k, int i) { return red[2 * k * kBI + i] + red[(2 * k + 1) * kBI + i]; };
+#pragma unroll
+        for (int ii = 0; ii < 4; ++ii) {
+            const int i = ty * 4 + ii;
+            a_u[ii] = total(0, i);
+            if (OPS) {
+                a_dt[ii] = total(1, i);
+                a_div[ii] = total(2, i);
+                a_lap[ii] = total(3, i);
+            }
+            if (GRAD) {
+                a_sp[ii] = total(4, i);
+                a_t[ii] = -gt * total(5, i);
+                a_c[ii] = total(6, i);
+                a_e[ii] = total(7, i);
+                a_yt[ii] = -gt * total(8, i);
+            }
+        }
+    } else {
+#pragma unroll
+        for (int ii = 0; ii < 4; ++ii) {
+            a_u[ii] = row_group_sum(a_u[ii]);
+            if (OPS) {
+                a_dt[ii] = row_group_sum(a_dt[ii]);
+                a_div[ii] = row_group_sum(a_div[ii]);
+                a_lap[ii] = row_group_sum(a_lap[ii]);
+            }
+            if (GRAD) {
+                a_sp[ii] = row_group_sum(a_sp[ii]);
+                a_t[ii] = -gt * row_group_sum(a_t[ii]);
+                a_c[ii] = row_group_sum(a_c[ii]);
+                a_e[ii] = row_group_sum(a_e[ii]);
+                a_yt[ii] = -gt * row_group_sum(a_yt[ii]);
+            }
         }
     }
 
@@ -416,6 +716,7 @@ cudaError_t prepare(size_t smem) {
 
 struct Call {
     const float *x, *cols;
+    const __nv_bfloat16* rows_bf16;
     int n, ld, F, splits;
     float gs, gt, gr;
     float *scratch, *out;
@@ -424,13 +725,13 @@ struct Call {
 
 template <bool GRAD, bool OPS, int NC, bool BF16>
 cudaError_t launch(const Call& c) {
-    const size_t smem = smem_bytes(GRAD, c.F);
+    const size_t smem = smem_bytes(GRAD, c.F, BF16);
     cudaError_t e = prepare<GRAD, OPS, NC, BF16>(smem);
     if (e != cudaSuccess) return e;
     const dim3 grid((unsigned)((c.n + kBI - 1) / kBI), (unsigned)c.splits);
     fused_posterior_kernel<GRAD, OPS, NC, BF16><<<grid, kThreads, smem, c.stream>>>(
         c.x, c.cols, c.n, c.ld, c.F, c.ld / kBJ, c.gs, c.gt, c.gr,
-        c.splits > 1 ? c.scratch : c.out);
+        c.splits > 1 ? c.scratch : c.out, c.rows_bf16);
     e = cudaGetLastError();
     if (e != cudaSuccess || c.splits == 1) return e;
     const long long total = (long long)out_floats(GRAD, OPS, c.n, c.F);
@@ -441,7 +742,7 @@ cudaError_t launch(const Call& c) {
 
 template <bool GRAD, bool OPS, int NC, bool BF16>
 cudaError_t occupancy(int F, int* blocks) {
-    const size_t smem = smem_bytes(GRAD, F);
+    const size_t smem = smem_bytes(GRAD, F, BF16);
     const cudaError_t e = prepare<GRAD, OPS, NC, BF16>(smem);
     if (e != cudaSuccess) return e;
     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
@@ -502,23 +803,28 @@ int scasml_fused_posterior_occupancy(int want_grad, int want_ops, int bf16, int 
 }
 
 // Launches on `stream` of card `device` and returns cudaGetLastError() of the
-// launches.  bf16 selects the bf16-operand variant.  ld is the padded
-// training-row count (a multiple of 64) and splits plan()'s S.  out receives [u (n) | grad (n, F) if want_grad | dt,
+// launches.  bf16 selects the bf16-operand variant, which also reads
+// rows_bf16 (ld, F padded to a multiple of 16; prepare_inputs), null
+// otherwise.  ld is the padded training-row count (a multiple of 64) and
+// splits plan()'s S.  out receives [u (n) | grad (n, F) if want_grad | dt,
 // div, lap (n each) if want_ops]; scratch holds S such slices and may be
 // null when S = 1.
 int scasml_fused_posterior(int device, int want_grad, int want_ops, int bf16, const float* x,
-                           const float* cols, int n, int ld, int F, float gs, float gt,
-                           float gr, int splits, float* scratch, float* out, void* stream) {
+                           const float* cols, const void* rows_bf16, int n, int ld, int F,
+                           float gs, float gt, float gr, int splits, float* scratch,
+                           float* out, void* stream) {
     const int tiles = ld / kBJ;
     if (F < 2 || F > kMaxFeatures || n < 0 || ld < kBJ || ld % kBJ != 0 || splits < 1 ||
-        splits > tiles || (splits > 1 && scratch == nullptr) || out == nullptr)
+        splits > tiles || (splits > 1 && scratch == nullptr) || out == nullptr ||
+        (bf16 != 0 && rows_bf16 == nullptr))
         return (int)cudaErrorInvalidValue;
     if (n == 0) return 0;
     int prev = 0;
     cudaError_t e = cudaGetDevice(&prev);
     if (e == cudaSuccess && prev != device) e = cudaSetDevice(device);
     if (e != cudaSuccess) return (int)e;
-    const Call c{x, cols, n, ld, F, splits, gs, gt, gr, scratch, out, (cudaStream_t)stream};
+    const Call c{x, cols, static_cast<const __nv_bfloat16*>(rows_bf16), n, ld, F, splits,
+                 gs, gt, gr, scratch, out, (cudaStream_t)stream};
     e = dispatch<LaunchOp>(want_grad != 0, want_ops != 0, bf16 != 0, F, c);
     if (prev != device) cudaSetDevice(prev);
     return (int)e;

@@ -20,9 +20,11 @@ counts one per call.
 
 ``prepare_inputs(..., operand_dtype=torch.bfloat16)`` prepares the inputs of
 the bf16-operand variant (the JAX package's ``operand_dtype='bfloat16'``):
-the same columns, with the row stats of the bf16-rounded y; the kernel then
-rounds x and y for the pair statistics and keeps them unrounded for the
-gradient's contractions.
+the same columns, with the row stats of the bf16-rounded y, and
+``rows_bf16``, the training rows rounded to bf16 once, row-major with the
+width padded to a multiple of 16: the operand of the kernel's tensor-core
+x.y product.  The kernel rounds x itself, and keeps x and y unrounded for
+the gradient's contractions.
 
 ``fused_posterior`` launches the kernel for CUDA tensors and counts the
 launch in ``launches`` (a captured rollout's launches are counted on each
@@ -110,6 +112,8 @@ class FusedInputs(NamedTuple):
     gamma: tuple           # (gs, gt, gr) as Python floats
     dim: int
     operand_dtype: torch.dtype = torch.float32  # of the pair statistics
+    # bf16 only: (m_pad, Fp) y rounded to bf16, zero past m and past F
+    rows_bf16: Optional[torch.Tensor] = None
 
 
 OPERAND_DTYPES = {None: torch.float32, "float32": torch.float32,
@@ -145,7 +149,23 @@ def prepare_inputs(x_dom, x_bdy, r, gamma, dim: int,
     cols[:, :m] = torch.cat([y, w, stats], dim=1).T
     return FusedInputs(y=y, r=w, y_stats=stats, cols=cols,
                        gamma=tuple(float(g) for g in split_gamma(gamma)),
-                       dim=int(dim), operand_dtype=od)
+                       dim=int(dim), operand_dtype=od,
+                       rows_bf16=_rows_bf16(y) if od == torch.bfloat16 else None)
+
+
+def padded_depth(F: int) -> int:
+    """The bf16 variant's x.y depth: F padded with zeros to a multiple of
+    the tensor-core product's k-step, 16."""
+    return _cdiv(F, 16) * 16
+
+
+def _rows_bf16(y):
+    """y (m, F) rounded to bf16, as the (m_pad, Fp) row-major operand tile
+    of the bf16 variant: zero past m and past F."""
+    m, F = y.shape
+    rows = y.new_zeros((_cdiv(m, BJ) * BJ, padded_depth(F)), dtype=torch.bfloat16)
+    rows[:m, :F] = y.to(torch.bfloat16)
+    return rows
 
 
 def shard_inputs(fused: FusedInputs, lo: int, hi: int) -> FusedInputs:
@@ -157,7 +177,8 @@ def shard_inputs(fused: FusedInputs, lo: int, hi: int) -> FusedInputs:
     y, w, stats = fused.y[lo:hi], fused.r[lo:hi], fused.y_stats[lo:hi]
     cols = y.new_zeros((y.shape[1] + RECORD, _cdiv(hi - lo, BJ) * BJ))
     cols[:, :hi - lo] = torch.cat([y, w, stats], dim=1).T
-    return fused._replace(y=y, r=w, y_stats=stats, cols=cols)
+    rows = None if fused.rows_bf16 is None else _rows_bf16(y)
+    return fused._replace(y=y, r=w, y_stats=stats, cols=cols, rows_bf16=rows)
 
 
 def stacked_posterior(x, fused: FusedInputs, want_grad: bool,
@@ -219,10 +240,18 @@ class Plan(NamedTuple):
     scratch_shape: Optional[Tuple[int, int]]  # (S, n * out_width) when S > 1
 
 
-def smem_bytes(F: int, want_grad: bool) -> int:
+def smem_bytes(F: int, want_grad: bool, bf16: bool = False) -> int:
     """Shared memory of one block, as fused_posterior.cu lays it out (the
-    launcher takes its own count from there): the x tile and its stats, two
-    stages of y tile and records, and the A_sp tile with the gradient."""
+    launcher takes its own count from there).  float32: the x tile and its
+    stats, two stages of y tile and records, and the A_sp tile with the
+    gradient.  bf16: the x stats, two stages of records (after the float32
+    y tile with the gradient), the A_sp tile with the gradient, then bf16
+    tiles of 64 rows of padded_depth(F) + 8 values: x, and y (one with the
+    gradient, two without)."""
+    if bf16:
+        floats = (3 * BI + 2 * ((F if want_grad else 0) + RECORD) * (BJ + 4)
+                  + (BI * (BJ + 4) if want_grad else 0))
+        return 4 * floats + 2 * (BI + (1 if want_grad else 2) * BJ) * (padded_depth(F) + 8)
     floats = (F * (BI + 4) + 3 * BI + 2 * (F + RECORD) * (BJ + 4)
               + (BI * (BJ + 4) if want_grad else 0))
     return 4 * floats
@@ -236,7 +265,7 @@ def out_width(F: int, want_grad: bool, want_ops: bool) -> int:
 
 
 def plan(n: int, m: int, F: int, sm_count: int, blocks_per_sm: int,
-         want_grad: bool = True, want_ops: bool = False) -> Plan:
+         want_grad: bool = True, want_ops: bool = False, bf16: bool = False) -> Plan:
     """The launch for n evaluation rows against m training rows of width F
     on a card with ``sm_count`` SMs, each holding ``blocks_per_sm`` blocks of
     the kernel at once (the wrapper asks the CUDA runtime).
@@ -248,13 +277,15 @@ def plan(n: int, m: int, F: int, sm_count: int, blocks_per_sm: int,
     epilogue.  Against a sweep of S at the main path's ten shapes on an H100
     (``python -m scasml_gp_torch.measure``), it picks the measured best S or
     one within 7% of it; filling every slot (the smallest S with
-    row_blocks * S >= slots) cost 11-30% there."""
+    row_blocks * S >= slots) cost 11-30% there.  ``bf16`` plans the
+    bf16-operand variant, whose blocks lay out their shared memory
+    differently (``smem_bytes``)."""
     if not 2 <= F <= MAX_FEATURES:
         raise ValueError(f"fused_posterior supports 2 <= d + 1 <= {MAX_FEATURES}, got {F}")
     if m < 1 or n < 0 or sm_count < 1 or blocks_per_sm < 1:
         raise ValueError(f"plan: bad sizes n={n}, m={m}, sm_count={sm_count}, "
                          f"blocks_per_sm={blocks_per_sm}")
-    smem = smem_bytes(F, want_grad)
+    smem = smem_bytes(F, want_grad, bf16)
     if smem > SMEM_PER_BLOCK:
         raise ValueError(f"plan: {smem} bytes of shared memory exceed {SMEM_PER_BLOCK}")
     row_blocks = _cdiv(n, BI)
@@ -271,11 +302,13 @@ def plan(n: int, m: int, F: int, sm_count: int, blocks_per_sm: int,
                 blocks_per_sm=blocks_per_sm, scratch_shape=scratch)
 
 
-def _check(name, t, device, shape):
+def _check(name, t, device, shape, dtype=torch.float32):
+    if t is None:
+        raise ValueError(f"{name} is missing")
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
     if t.shape != shape:
@@ -308,7 +341,7 @@ def _occupancy(index: int, want_grad: bool, want_ops: bool, bf16: bool, F: int) 
 def _card_plan(index: int, n: int, m: int, F: int, want_grad: bool,
                want_ops: bool, bf16: bool) -> Plan:
     return plan(n, m, F, _sm_count(index),
-                _occupancy(index, want_grad, want_ops, bf16, F), want_grad, want_ops)
+                _occupancy(index, want_grad, want_ops, bf16, F), want_grad, want_ops, bf16)
 
 
 def launch_plan(x, fused: FusedInputs, want_grad: bool, want_ops: bool) -> Plan:
@@ -338,14 +371,19 @@ def fused_posterior(x, fused: FusedInputs, want_grad: bool = False,
     global launches
     lib = build.load_library()
     F = fused.dim + 1
-    n, m_pad = x.shape[0], fused.cols.shape[1]
+    n, m_pad = x.shape[0], _cdiv(fused.y.shape[0], BJ) * BJ
     if F > MAX_FEATURES:
         raise ValueError(f"fused_posterior supports d + 1 <= {MAX_FEATURES}, got {F}")
     dev = x.device
     _check("x", x, dev, (n, F))
-    _check("fused.cols", fused.cols, dev, (F + RECORD, _cdiv(fused.y.shape[0], BJ) * BJ))
+    _check("fused.cols", fused.cols, dev, (F + RECORD, m_pad))
     if fused.cols.data_ptr() % 16:
         raise ValueError("fused.cols must be 16-byte aligned")
+    bf16 = fused.operand_dtype == torch.bfloat16
+    if bf16:
+        _check("fused.rows_bf16", fused.rows_bf16, dev, (m_pad, padded_depth(F)), torch.bfloat16)
+        if fused.rows_bf16.data_ptr() % 16:
+            raise ValueError("fused.rows_bf16 must be 16-byte aligned")
     # One allocation for every output, in the kernel's order: u, grad, then
     # dt, div, lap.
     sizes = [n] + ([n * F] if want_grad else []) + ([n] * 3 if want_ops else [])
@@ -360,10 +398,9 @@ def fused_posterior(x, fused: FusedInputs, want_grad: bool = False,
     p = launch_plan(x, fused, want_grad, want_ops)
     scratch = (torch.empty(p.scratch_shape, dtype=torch.float32, device=dev)
                if p.splits > 1 else None)
-    bf16 = fused.operand_dtype == torch.bfloat16
     rc = lib.scasml_fused_posterior(
         dev.index, int(want_grad), int(want_ops), int(bf16), x.data_ptr(),
-        fused.cols.data_ptr(),
+        fused.cols.data_ptr(), fused.rows_bf16.data_ptr() if bf16 else None,
         n, m_pad, F, *fused.gamma, p.splits,
         None if scratch is None else scratch.data_ptr(), buf.data_ptr(),
         torch._C._cuda_getCurrentRawStream(dev.index),  # current_stream's, without a Stream

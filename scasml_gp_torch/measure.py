@@ -1,7 +1,7 @@
 """Measure the fused-posterior kernel and the ScaSML solve on one GPU.
 
     python -m scasml_gp_torch.measure [--out FILE.json]
-        [--parts kernel,splits,host,solves,tune,train,fit]
+        [--parts kernel,splits,host,solves,tune,train,fit,bf16]
 
 1. kernel: CUDA-event time of each specialisation of the kernel against a GP
    trained on 1000 + 200 rows, at d=20 (the bench GP) and at d=100 (F = 101,
@@ -42,6 +42,11 @@
    single trains (busy, idle, peak memory of each); the library's batched
    Cholesky, Cholesky inverse and 3N x 3N solve against one call per matrix
    at the fit's shapes.
+8. bf16: at the full-history, Sine d=100 and high_dim d=250 calls
+   (BF16_SHAPES; GPs trained on 1000 + 200 rows at d = 20, 100 and 250), the
+   bf16-operand variant's device time beside the float32 kernel's on the
+   same rows, each against its bound, and the bf16 outputs' largest error
+   against the plain bf16 version as a share of the 2e-4 bar.
 Needs a CUDA device; prints one line per measurement and writes all of them
 to --out as JSON.  Parts 3 and 4 use only the package's public entry points
 and ``fused_posterior(x, fused_inputs, want_grad, want_ops)``, so this file
@@ -83,7 +88,19 @@ MAIN_SHAPES = (
     ("Sine grad+ops", 100, 1200, (True, True)),
 )
 SPLITS = (1, 2, 3, 4, 5, 6, 7, 8, 10, 12, 14, 19)
-PARTS = ("kernel", "splits", "host", "solves", "tune", "train", "fit")
+# (caller, d, rows, (want_grad, want_ops)) of the bf16 variant's table in
+# PERF.md: the full-history solve's calls at d = 20, the Sine d=100 run's and
+# high_dim grad_dep's at d = 250 (with grad+ops on the gradient call's rows)
+BF16_SHAPES = tuple(
+    (f"{path} {caller}", d, rows, flags)
+    for path, d, (n_u, n_grad) in (("full-history", 20, (10800, 3600)),
+                                   ("Sine", 100, (10800, 3600)),
+                                   ("high_dim", 250, (5400, 1800)))
+    for caller, rows, flags in (("g_breve", n_u, (False, False)),
+                                ("f_breve", n_grad, (True, False)),
+                                ("leaf", n_u, (False, True)),
+                                ("grad+ops", n_grad, (True, True))))
+PARTS = ("kernel", "splits", "host", "solves", "tune", "train", "fit", "bf16")
 HOST_ROWS = 64
 SOLVE_REPS = 21
 FP32_PEAK = 67e12  # H100 SXM float32 outside the tensor cores, at 700 W
@@ -502,6 +519,52 @@ def split_sweep(states, dev):
     return rows
 
 
+def bf16_table(dev):
+    """At each BF16_SHAPES call: device ms of the float32 kernel and of the
+    bf16 variant on the same rows, their bounds and shares, and the bf16
+    outputs against the plain bf16 version (largest |err| over the bar
+    2e-4 + 2e-4 |plain|)."""
+    from scasml_gp_torch.gp.posterior import posterior_block
+
+    states, rows = {}, []
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for caller, d, n, flags in BF16_SHAPES:
+        if d not in states:
+            eq_d = port.GradDependentNonlinear(n_input=d + 1)
+            gp_d = port.GPGradDependentNonlinear(eq_d, port.GPConfig(gn_steps=20),
+                                                 device=dev)
+            gp_d.GPsolver(*eq_d.generate_data(
+                N_DOM, N_BDY, torch.Generator(device=dev).manual_seed(1234), device=dev))
+            states[d] = (eq_d, gp_d.state)
+        eq_d, st = states[d]
+        x = eq_d.geometry().sample_domain(gen, n, device=dev)
+        m, F = st.x_dom.shape[0] + st.x_bdy.shape[0], d + 1
+        row = {"caller": caller, "F": F, "n": n, "m": m, "want_grad": flags[0],
+               "want_ops": flags[1]}
+        for name, od in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+            fused = st.fused_inputs(od)
+            ms = event_ms(lambda: fp.fused_posterior(x, fused, *flags), device_bound=True)
+            b_ms, _ = bound(n, m, F, *flags, bf16=od == torch.bfloat16)
+            row[name] = {"device_ms": ms, "bound_ms": b_ms, "share_of_bound": b_ms / ms,
+                         "splits": fp.launch_plan(x, fused, *flags).splits}
+        got = fp.fused_posterior(x, st.fused_inputs(torch.bfloat16), *flags)
+        ref = posterior_block(x, st.x_dom, st.x_bdy, st.right_vector, st.gamma, d, *flags,
+                              operand_dtype=torch.bfloat16)
+        row["bf16"]["err_over_bar"] = max(
+            float(((a - b).abs() / (2e-4 + 2e-4 * b.abs())).max())
+            for a, b in zip(got, ref) if b is not None)
+        row["fp32_over_bf16"] = row["fp32"]["device_ms"] / row["bf16"]["device_ms"]
+        rows.append(row)
+        print(f"[bf16] {caller} F={F} n={n}: float32 {row['fp32']['device_ms']:.4f} ms "
+              f"(S={row['fp32']['splits']}, {row['fp32']['share_of_bound']:.3f} of "
+              f"{row['fp32']['bound_ms'] * 1e3:.2f} us), bf16 {row['bf16']['device_ms']:.4f} "
+              f"ms (S={row['bf16']['splits']}, {row['bf16']['share_of_bound']:.3f} of "
+              f"{row['bf16']['bound_ms'] * 1e3:.2f} us), float32 / bf16 "
+              f"{row['fp32_over_bf16']:.2f}; bf16 against plain: err / bar "
+              f"{row['bf16']['err_over_bar']:.3g}", flush=True)
+    return rows
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="write the results as JSON here")
@@ -556,6 +619,8 @@ def main(argv=None):
         res["train"] = profile_train(dev)
     if "fit" in parts:
         res["fit"] = profile_fit(dev)
+    if "bf16" in parts:
+        res["bf16"] = bf16_table(dev)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as fh:

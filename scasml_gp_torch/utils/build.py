@@ -110,7 +110,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C signatures of the library's entry points."""
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.scasml_fused_posterior.argtypes = [
-        ci, ci, ci, ci, vp, vp, ci, ci, ci, cf, cf, cf, ci, vp, vp, vp]
+        ci, ci, ci, ci, vp, vp, vp, ci, ci, ci, cf, cf, cf, ci, vp, vp, vp]
     lib.scasml_fused_posterior.restype = ci
     lib.scasml_fused_posterior_occupancy.argtypes = [
         ci, ci, ci, ci, ctypes.POINTER(ci)]

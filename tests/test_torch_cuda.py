@@ -11,10 +11,15 @@ Tolerance: rtol = atol = 2e-4, the posterior's bar (tests/test_pallas.py);
 kernel and plain version compute r^2 in the same norm form and differ in
 summation order.  The bf16-operand variant is held to its own plain version,
 ``posterior_block(..., operand_dtype=torch.bfloat16)``, at the same bar: both
-round the same operands to bf16 and sum exact float32 products.
+round the same operands to bf16 and sum exact float32 products (the kernel's
+on the tensor cores, mma.sync with float32 accumulators).
 """
 
 import dataclasses
+import hashlib
+import os
+import re
+import subprocess
 
 import numpy as np
 import pytest
@@ -31,6 +36,8 @@ FLAGS = [(False, False), (True, False), (False, True), (True, True)]
 # (d, interior rows, boundary rows): F = 21 and 101 as on the main path, and
 # the widest F = 256; m = 200 is no multiple of the 64-row tile.
 WIDTHS = [(20, 150, 50), (100, 150, 50), (255, 150, 50)]
+# the bf16 variant also at F = 251, the high_dim path's width
+BF16_WIDTHS = WIDTHS + [(250, 150, 50)]
 ROWS = (301, 1337)
 
 
@@ -154,9 +161,9 @@ def test_plan_matches_the_kernel_layout():
         pytest.skip("needs a CUDA device")
     for F in (2, 21, 101, 256):
         for g in (False, True):
-            by_smem = 233472 // (fp.smem_bytes(F, g) + 1024)
-            for o in (False, True):
-                for bf16 in (False, True):
+            for bf16 in (False, True):
+                by_smem = 233472 // (fp.smem_bytes(F, g, bf16) + 1024)
+                for o in (False, True):
                     assert 1 <= fp._occupancy(0, g, o, bf16, F) <= by_smem
 
 
@@ -330,11 +337,11 @@ def test_bf16_kernel_matches_plain(problem, want_grad, want_ops):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d,n_dom,n_bdy", WIDTHS)
+@pytest.mark.parametrize("d,n_dom,n_bdy", BF16_WIDTHS)
 @pytest.mark.parametrize("sm_count", [1, None, 100000], ids=["S=1", "planned", "S=tiles"])
 def test_bf16_kernel_matches_plain_at_width(trained, monkeypatch, d, n_dom, n_bdy,
                                             sm_count):
-    """The bf16 variant at F = 21, 101 and 256 with trained weights, one
+    """The bf16 variant at F = 21, 101, 256 and 251 with trained weights, one
     split, the planned splits and one split per tile, all four
     specialisations, at 2e-4; and it is bitwise repeatable."""
     eq, st = trained(d, n_dom, n_bdy)
@@ -352,6 +359,104 @@ def test_bf16_kernel_matches_plain_at_width(trained, monkeypatch, d, n_dom, n_bd
             _assert_outputs_close(got, want, f"n={n} flags={flags}")
             for a, b in zip(got, again):
                 assert a is None or torch.equal(a, b), flags
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,n_dom,n_bdy", BF16_WIDTHS)
+def test_bf16_call_replayed_in_a_graph_is_bitwise_eager(trained, d, n_dom, n_bdy):
+    """One bf16 call of each specialisation captured in a CUDA graph (as
+    the captured rollouts of picard/graphs.py capture it): the replay gives
+    the eager call's bits."""
+    eq, st = trained(d, n_dom, n_bdy)
+    fused = st.fused_inputs(BF16)
+    x = eq.geometry().sample_domain(torch.Generator(device=st.x_dom.device).manual_seed(4),
+                                    1337, device=st.x_dom.device)
+    for flags in FLAGS:
+        eager = fp.fused_posterior(x, fused, *flags)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fp.fused_posterior(x, fused, *flags)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = fp.fused_posterior(x, fused, *flags)
+        for _ in range(2):
+            graph.replay()
+            torch.cuda.synchronize()
+            for name, a, b in zip(eager._fields, out, eager):
+                assert a is None or torch.equal(a, b), (name, flags)
+
+
+def _kernel_sass():
+    """{kernel name: SASS} of the built library (cuobjdump)."""
+    from scasml_gp_torch.utils import build
+
+    cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", build.library_path()], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    return {m.group(1): m.group(2) for m in re.finditer(
+        r"Function : (\S+)\n(.*?)(?=\n\s*Function : |\Z)", text, re.S)}
+
+
+@pytest.mark.cuda
+def test_bf16_specialisations_run_x_dot_y_on_the_tensor_cores():
+    """Every bf16 specialisation issues bf16 HMMA (mma.sync) instructions
+    with float32 accumulators; no float32 one issues any."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from scasml_gp_torch.utils import build
+
+    build.load_library()
+    kernels = {k: v for k, v in _kernel_sass().items() if "fused_posterior_kernel" in k}
+    bf16 = {k: v for k, v in kernels.items() if re.search(r"Li\d+ELb1E", k)}
+    fp32 = {k: v for k, v in kernels.items() if re.search(r"Li\d+ELb0E", k)}
+    assert len(bf16) == len(fp32) == 10, sorted(kernels)
+    for name, sass in bf16.items():
+        assert re.search(r"HMMA\.16816\.F32\.BF16", sass), name
+    for name, sass in fp32.items():
+        assert "HMMA" not in sass, name
+
+
+# The float32 specialisations' outputs at F = 21, hashed: the digests of
+# the kernel before its bf16 specialisations moved to the tensor cores
+# (NVIDIA H100 80GB HBM3), which left the float32 ones as they were.
+PARENT_FLOAT32_DIGESTS = {
+    "00": {"u": "874a9ef77d942c64"},
+    "10": {"u": "717e4450d2a2764c", "grad": "fc5db632e05341a0"},
+    "01": {"u": "874a9ef77d942c64", "dt_u": "1268a5e7303bb3f1", "div_u": "6e1b64274b2b1cd8",
+           "lap_u": "c9d774880cfd0ee9"},
+    "11": {"u": "717e4450d2a2764c", "grad": "fc5db632e05341a0", "dt_u": "1268a5e7303bb3f1",
+           "div_u": "6e1b64274b2b1cd8", "lap_u": "c9d774880cfd0ee9"},
+}
+
+
+def float32_digests():
+    """SHA-256 (first 16 hex digits) of each output of each float32
+    specialisation at F = 21 on seeded numpy inputs, n = 1337 rows against
+    150 + 50 training rows (three splits on an H100)."""
+    rng = np.random.default_rng(21)
+    dev = torch.device("cuda", 0)
+    x, x_dom, x_bdy = (torch.from_numpy(rng.uniform(-0.5, 0.5, (k, 21)).astype(np.float32))
+                       .to(dev) for k in (1337, 150, 50))
+    r = torch.from_numpy(0.1 * rng.normal(size=650).astype(np.float32)).to(dev)
+    fused = fp.prepare_inputs(x_dom, x_bdy, r, kernel_gamma(0.25, 20), 20)
+    out = {}
+    for flags in FLAGS:
+        got = fp.fused_posterior(x, fused, *flags)
+        torch.cuda.synchronize()
+        out[f"{flags[0]:d}{flags[1]:d}"] = {
+            name: hashlib.sha256(a.cpu().numpy().tobytes()).hexdigest()[:16]
+            for name, a in zip(got._fields, got) if a is not None}
+    return out
+
+
+@pytest.mark.cuda
+def test_float32_kernel_is_bitwise_the_pinned_outputs():
+    """The float32 specialisations give the pinned outputs bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    assert float32_digests() == PARENT_FLOAT32_DIGESTS
 
 
 @pytest.mark.cuda

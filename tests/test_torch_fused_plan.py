@@ -105,6 +105,74 @@ def test_prepare_inputs_layout(n_dom, n_bdy):
     torch.testing.assert_close(fused.y_stats[:, 2], y[:, -1], rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("want_ops", [False, True])
+@pytest.mark.parametrize("want_grad", [False, True])
+@pytest.mark.parametrize("F", [21, 101, 251, 256])
+def test_bf16_plan_fits_and_covers_rows_and_tiles_once(F, want_grad, want_ops):
+    """The bf16 variant's blocks (the tensor-core operand tiles beside the
+    float32 records and, with the gradient, the float32 y tile) fit the
+    H100's shared memory at every width, and its plan covers every row and
+    tile once."""
+    smem = fp.smem_bytes(F, want_grad, bf16=True)
+    assert smem <= fp.SMEM_PER_BLOCK
+    for n in ROWS:
+        for m in TRAIN:
+            p = fp.plan(n, m, F, SMS, 1, want_grad, want_ops, bf16=True)
+            assert p.smem_bytes == smem
+            assert p.row_blocks * fp.BI >= n > (p.row_blocks - 1) * fp.BI or n == p.row_blocks == 0
+            assert p.tiles * fp.BJ >= m > (p.tiles - 1) * fp.BJ
+            assert 1 <= p.splits <= p.tiles
+            width = 1 + (F if want_grad else 0) + (3 if want_ops else 0)
+            assert p.scratch_shape == ((p.splits, n * width) if p.splits > 1 else None)
+
+
+@pytest.mark.parametrize("F,want_grad,smem", [
+    # the kernel's layout in bytes: x stats 768; two stages of records (and
+    # the float32 y tile with the gradient), rows of 68 floats; the 64 x 68
+    # float A_sp tile with the gradient; bf16 tiles of 64 rows of Fp + 8
+    # values: x, then y (one with the gradient, two without)
+    (21, False, 768 + 2 * 7 * 272 + 3 * 64 * 40 * 2),
+    (21, True, 768 + 2 * 28 * 272 + 17408 + 2 * 64 * 40 * 2),
+    (256, False, 768 + 2 * 7 * 272 + 3 * 64 * 264 * 2),
+    (256, True, 228832),
+])
+def test_bf16_smem_bytes_is_the_kernel_layout(F, want_grad, smem):
+    assert fp.smem_bytes(F, want_grad, bf16=True) == smem
+    # the float32 layout is the one it always was
+    assert fp.smem_bytes(F, want_grad) == fp.smem_bytes(F, want_grad, bf16=False) == 4 * (
+        F * 68 + 192 + 2 * (F + 7) * 68 + (64 * 68 if want_grad else 0))
+
+
+@pytest.mark.parametrize("d,n_dom,n_bdy", [(5, 70, 30), (20, 1000, 200), (100, 3, 1),
+                                           (250, 40, 20)])
+def test_prepare_inputs_rows_bf16(d, n_dom, n_bdy):
+    """The bf16 variant's operand rows: y rounded to bf16, row-major, zero
+    past m and past F (padded to a multiple of 16); the float32 inputs have
+    none; shard_inputs slices them as it slices cols."""
+    rng = np.random.default_rng(d)
+    x_dom = torch.from_numpy(rng.uniform(-0.5, 0.5, (n_dom, d + 1)).astype(np.float32))
+    x_bdy = torch.from_numpy(rng.uniform(-0.5, 0.5, (n_bdy, d + 1)).astype(np.float32))
+    r = torch.from_numpy(rng.normal(size=4 * n_dom + n_bdy).astype(np.float32))
+    gamma = kernel_gammas(0.25, d)
+    assert fp.prepare_inputs(x_dom, x_bdy, r, gamma, d).rows_bf16 is None
+    fused = fp.prepare_inputs(x_dom, x_bdy, r, gamma, d, operand_dtype=torch.bfloat16)
+    m, F = n_dom + n_bdy, d + 1
+    Fp = -(-F // 16) * 16
+    assert fp.padded_depth(F) == Fp and Fp % 16 == 0 and F <= Fp < F + 16
+    rows = fused.rows_bf16
+    assert rows.dtype == torch.bfloat16 and rows.is_contiguous()
+    assert rows.shape == (fused.cols.shape[1], Fp)
+    assert torch.equal(rows[:m, :F], torch.cat([x_dom, x_bdy]).to(torch.bfloat16))
+    assert torch.all(rows[m:] == 0) and torch.all(rows[:, F:] == 0)
+    # a 'model' rank's slice: its rows, re-padded to whole tiles
+    for lo, hi in ((0, m), (m // 3, m), (1, max(2, m // 2))):
+        part = fp.shard_inputs(fused, lo, hi)
+        assert torch.equal(part.rows_bf16[:hi - lo], rows[lo:hi])
+        assert part.rows_bf16.shape == (part.cols.shape[1], Fp)
+        assert torch.all(part.rows_bf16[hi - lo:] == 0)
+        assert torch.equal(part.cols[:, :hi - lo], fused.cols[:, lo:hi])
+
+
 def test_wrapper_takes_the_plain_version_for_cpu_tensors_without_a_launch():
     d = 3
     rng = np.random.default_rng(1)
