@@ -1268,7 +1268,11 @@ def serve_phase(dev, smi, gp):
         st = server.stats()
         check(st["requests"] == requests and st["rows"] >= sum(SERVE_ROWS),
               f"stats {st} (expected {requests} requests)")
-        check(set(st["endpoint_seconds"]) == set(endpoints), f"stats {st}")
+        check(set(st["endpoint_seconds"]) == set(st["lock_wait_seconds"]) == set(endpoints),
+              f"stats {st}")
+        check(st["rows_computed"] >= st["rows"], f"stats {st}")
+        # /predict and /gradient capture once a bucket; /solve replays the solver's graphs
+        check(st["captures"] == 2 * len(SERVE_BUCKETS) and st["replays"] > 0, f"stats {st}")
     finally:
         httpd.shutdown()
         httpd.server_close()

@@ -13,6 +13,11 @@ state stays in device tensors: it makes no host sync.  Past
 ``GPConfig.dense_phi_max`` training goes to the dual-CG trainer of
 gp/distributed.py instead.
 
+A train's stretches are spans (utils/profiling.py): ``train.gram``,
+``train.factor``, ``train.newton`` around the step loop, inside it each
+step's 3N x 3N solve ``train.newton_solve``, and ``train.answer`` (the
+closing posterior mean).
+
 ``PrecisionPolicy.gram = 'bfloat16'`` computes the Gram's and the
 posterior's pair statistics from bf16-rounded points.  The parity modes
 (``laplacian='subset'``, ``parity_fp16``; gp/parity.py) train on the
@@ -41,6 +46,7 @@ from scasml_gp_torch.gp.posterior import posterior_eval
 from scasml_gp_torch.gp.state import GPState
 from scasml_gp_torch.gp.variance import factor_for_variance, posterior_variance
 from scasml_gp_torch.utils.device import resolve_device
+from scasml_gp_torch.utils.profiling import span
 
 
 class GPForm:
@@ -239,7 +245,8 @@ class GP:
             sol=out.sol, gamma=gamma, loss_history=out.loss_history,
         )
         self.loss_history = out.loss_history
-        return self.predict(x_dom)
+        with span("train.answer"):
+            return self.predict(x_dom)
 
     def _resolve_train_backend(self, x_dom, x_bdy) -> str:
         """'dense' or 'distributed' per ``config.train_backend``: 'auto'
@@ -291,11 +298,13 @@ class GP:
         sol0 = self._initial_point(x_dom.shape[0], x_dom.device, sol0)
         mesh = self.mesh if mesh is None else mesh
         od = self.precision.gram_dtype
-        if mesh is not None and mesh.model > 1:
-            K = sharded_gram_matrix(x_dom, x_bdy, gamma, self.d, mesh, od)
-        else:
-            K = gram_matrix(x_dom, x_bdy, gamma, self.d, od)
-        _, C = regularized_factorization(K, nugget)
+        with span("train.gram"):
+            if mesh is not None and mesh.model > 1:
+                K = sharded_gram_matrix(x_dom, x_bdy, gamma, self.d, mesh, od)
+            else:
+                K = gram_matrix(x_dom, x_bdy, gamma, self.d, od)
+        with span("train.factor"):
+            _, C = regularized_factorization(K, nugget)
         del K
         return self._newton_body(C, bdy_g, rhs, steps, damping, grad_tol, sol0)
 
@@ -396,28 +405,31 @@ class GP:
         gnorm_last = torch.zeros(batch, dtype=torch.float32, device=dev)
         damp = torch.full(batch, damping, dtype=torch.float32, device=dev)
 
-        for step in range(steps):
-            b = b_of(sol)
-            Cb = per_matrix(torch.mv, C, b)
-            grad = grad_of(sol, Cb)
-            gnorm = torch.linalg.vector_norm(grad, dim=-1)
-            stop = done | (gnorm < grad_tol)
-            H = hess_of(sol, Cb) + damp[..., None, None] * eye
-            direction = per_matrix(torch.linalg.solve_ex, H, -grad[..., :, None])[0][..., 0]
-            cand = sol[..., None, :] + alphas[:, None] * direction[..., None, :]
-            losses = losses_of(cand)
-            best = torch.argmin(losses, dim=-1, keepdim=True)
-            best_loss = losses.gather(-1, best)[..., 0]
-            best_sol = cand.gather(-2, best[..., None].expand(batch + (1, 3 * N)))[..., 0, :]
-            improved = best_loss < J
-            accept = improved & ~stop
-            sol = torch.where(accept[..., None], best_sol, sol)
-            J = torch.where(accept, best_loss, J)
-            damp = torch.where(improved, torch.clamp_min(damp * 0.1, damping),
-                               torch.clamp_max(damp * 10.0, 1.0))
-            hist[..., step + 1] = J
-            gnorm_last = torch.where(done, gnorm_last, gnorm)
-            done = stop
+        with span("train.newton"):
+            for step in range(steps):
+                b = b_of(sol)
+                Cb = per_matrix(torch.mv, C, b)
+                grad = grad_of(sol, Cb)
+                gnorm = torch.linalg.vector_norm(grad, dim=-1)
+                stop = done | (gnorm < grad_tol)
+                H = hess_of(sol, Cb) + damp[..., None, None] * eye
+                with span("train.newton_solve"):
+                    direction = per_matrix(torch.linalg.solve_ex, H,
+                                           -grad[..., :, None])[0][..., 0]
+                cand = sol[..., None, :] + alphas[:, None] * direction[..., None, :]
+                losses = losses_of(cand)
+                best = torch.argmin(losses, dim=-1, keepdim=True)
+                best_loss = losses.gather(-1, best)[..., 0]
+                best_sol = cand.gather(-2, best[..., None].expand(batch + (1, 3 * N)))[..., 0, :]
+                improved = best_loss < J
+                accept = improved & ~stop
+                sol = torch.where(accept[..., None], best_sol, sol)
+                J = torch.where(accept, best_loss, J)
+                damp = torch.where(improved, torch.clamp_min(damp * 0.1, damping),
+                                   torch.clamp_max(damp * 10.0, 1.0))
+                hist[..., step + 1] = J
+                gnorm_last = torch.where(done, gnorm_last, gnorm)
+                done = stop
 
         right_vector = per_matrix(torch.mv, C, b_of(sol))
         return _TrainOut(sol=sol, right_vector=right_vector, loss_history=hist,

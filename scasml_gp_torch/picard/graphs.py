@@ -39,6 +39,11 @@ would wait for the device, or copy from the host, raises
 :class:`GraphCaptureError`, naming the op and the line of the port that
 called it.  Nothing falls back to eager.
 
+A cache takes its owner's name, ``serve`` (the server's /predict and
+/gradient) or ``picard`` (a solver's rollouts): its calls are the spans
+``<owner>.eager``, ``<owner>.capture`` and ``<owner>.replay``
+(utils/profiling.py).
+
 These paths stay eager (``eager_reason``): CPU tensors; ``--debug-checks``
 (utils/debug.py checks every op's output on the host); a mesh with more
 than one rank on its 'data' or 'model' axis (the rollout's gather and the
@@ -58,6 +63,7 @@ from typing import Callable, Optional
 import torch
 
 from scasml_gp_torch.gp import fused_posterior as fp
+from scasml_gp_torch.utils.profiling import span
 
 _PACKAGE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _TORCH = os.path.dirname(os.path.abspath(torch.__file__))
@@ -184,13 +190,16 @@ def capture_graph(run: Callable, inputs: tuple = (), gen=None, pool=None,
 
 
 class GraphCache:
-    """Captured rollouts of one solver, by (key, rows, dtype) within one
-    ``params`` object (module docstring).  ``capture(run, x, gen, pool)``
-    captures ``run`` at input ``x`` and returns an object with ``replay(x)``,
-    ``close()``, ``pool`` and a ``launches`` slot; it is ``capture_cuda`` on
-    the card, and the CPU tests give an eager stand-in."""
+    """Captured rollouts of one solver, or of the server, by (key, rows,
+    dtype) within one ``params`` object (module docstring).  ``owner``
+    (``serve`` or ``picard``, declared in ``SPANS``) names its spans.
+    ``capture(run, x, gen, pool)`` captures ``run`` at input ``x`` and
+    returns an object with ``replay(x)``, ``close()``, ``pool`` and a
+    ``launches`` slot; it is ``capture_cuda`` on the card, and the CPU
+    tests give an eager stand-in."""
 
-    def __init__(self, capture: Callable = capture_cuda):
+    def __init__(self, owner: str, capture: Callable = capture_cuda):
+        self._names = {k: f"{owner}.{k}" for k in ("eager", "capture", "replay")}
         self._capture = capture
         self._entries = {}
         self._params = None
@@ -208,19 +217,22 @@ class GraphCache:
         entry = self._entries.get(k)
         if entry is None:
             self._entries[k] = _WARM
-            return fn(x, gen, params)
+            with span(self._names["eager"]):
+                return fn(x, gen, params)
         if entry is _WARM:
-            before = fp.launch_counts()
-            try:
-                entry = self._capture(lambda xs: fn(xs, gen, params), x, gen, self._pool)
-            finally:
-                launches = fp.take_launches_since(before)
+            with span(self._names["capture"]):
+                before = fp.launch_counts()
+                try:
+                    entry = self._capture(lambda xs: fn(xs, gen, params), x, gen, self._pool)
+                finally:
+                    launches = fp.take_launches_since(before)
             entry.launches = launches
             if self._pool is None:
                 self._pool = entry.pool
             self._entries[k] = entry
             self.captures += 1
-        out = entry.replay(x)
+        with span(self._names["replay"]):
+            out = entry.replay(x)
         fp.add_launches(entry.launches)
         self.replays += 1
         return out

@@ -42,6 +42,7 @@ from scasml_gp_torch.picard.schedule import (
     count_evaluations_quadrature,
 )
 from scasml_gp_torch.utils.debug import float_checked
+from scasml_gp_torch.utils.profiling import span
 from scasml_gp_torch.utils.device import resolve_device
 
 
@@ -91,7 +92,7 @@ class _PicardBase:
         self.reference_semantics = reference_semantics
         self._cache: Dict[Tuple, Callable] = {}
         # the captured rollouts of this solver (picard/graphs.py)
-        self._graphs = graphs.GraphCache()
+        self._graphs = graphs.GraphCache("picard")
         self._eager_only = False
 
     def _params(self):
@@ -150,24 +151,25 @@ class _PicardBase:
     def _run(self, schedule_key: Tuple, x_t) -> torch.Tensor:
         """Run the rollout, chunking the batch (padded to whole chunks); on
         the card through the captured graphs, one per chunk shape."""
-        x_t = torch.as_tensor(x_t, dtype=torch.float32, device=self.device)
-        fn = self._get_fn(schedule_key)
-        params = self._params()
-        if self.eager_reason() is None:
-            fn = functools.partial(self._graphs, schedule_key, fn)
-        B = x_t.shape[0]
-        chunk = self.batch_chunk
-        if chunk is None or B <= chunk:
-            return sharded_rollout(fn, x_t, self.gen, params, self.mesh)
-        outs = []
-        for start in range(0, B, chunk):
-            piece = x_t[start: start + chunk]
-            pad = chunk - piece.shape[0]
-            if pad:
-                piece = torch.cat([piece, piece.new_zeros((pad, piece.shape[1]))])
-            out = sharded_rollout(fn, piece, self.gen, params, self.mesh)
-            outs.append(out[: chunk - pad] if pad else out)
-        return torch.cat(outs, dim=0)
+        with span("picard.rollout"):
+            x_t = torch.as_tensor(x_t, dtype=torch.float32, device=self.device)
+            fn = self._get_fn(schedule_key)
+            params = self._params()
+            if self.eager_reason() is None:
+                fn = functools.partial(self._graphs, schedule_key, fn)
+            B = x_t.shape[0]
+            chunk = self.batch_chunk
+            if chunk is None or B <= chunk:
+                return sharded_rollout(fn, x_t, self.gen, params, self.mesh)
+            outs = []
+            for start in range(0, B, chunk):
+                piece = x_t[start: start + chunk]
+                pad = chunk - piece.shape[0]
+                if pad:
+                    piece = torch.cat([piece, piece.new_zeros((pad, piece.shape[1]))])
+                out = sharded_rollout(fn, piece, self.gen, params, self.mesh)
+                outs.append(out[: chunk - pad] if pad else out)
+            return torch.cat(outs, dim=0)
 
 
 

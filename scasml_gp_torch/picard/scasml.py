@@ -26,7 +26,9 @@ steps.
 
 On the card each rollout, the probes' included, replays a captured CUDA
 graph (picard/graphs.py); the guard's statistics are read on the host after
-the replays (``_guarded_u``, ``_measured_probe_ratio``).
+the replays (``_guarded_u``, ``_measured_probe_ratio``).  The guard and the
+surrogate's eager u_hat are the spans ``scasml.guard`` and ``scasml.u_hat``
+(utils/profiling.py).
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ from scasml_gp_torch.picard.schedule import (
     count_evaluations_full_history,
     count_evaluations_quadrature,
 )
+from scasml_gp_torch.utils.profiling import span
 
 
 class _ScaSMLBase(_PicardBase):
@@ -122,7 +125,8 @@ class _ScaSMLBase(_PicardBase):
         )
 
     def _u_hat(self, x_t) -> torch.Tensor:
-        return self.GP.predict(x_t)
+        with span("scasml.u_hat"):
+            return self.GP.predict(x_t)
 
     def _guarded_u(self, out, x_t, u_breve_half=None, num_valid=None,
                    probe_var_ratio=0.25) -> torch.Tensor:
@@ -254,8 +258,9 @@ class ScaSML(_ScaSMLBase):
             # fallback: Mg -> Mg//2 halves the terminal-pass variance
             ratio = self._measured_probe_ratio(out, a, b, 0.5, num_valid=num_valid)
             u_half = (a[:, :1], b[:, :1])
-        return self._guarded_u(out, x_t, u_breve_half=u_half,
-                               num_valid=num_valid, probe_var_ratio=ratio)
+        with span("scasml.guard"):
+            return self._guarded_u(out, x_t, u_breve_half=u_half,
+                                   num_valid=num_valid, probe_var_ratio=ratio)
 
 
 class ScaSMLFullHistory(_ScaSMLBase):
@@ -310,8 +315,9 @@ class ScaSMLFullHistory(_ScaSMLBase):
             ratio = self._measured_probe_ratio(out, a, b, fallback,
                                                num_valid=num_valid)
             u_half = (a[:, :1], b[:, :1])
-        return self._guarded_u(out, x_t, u_breve_half=u_half,
-                               num_valid=num_valid, probe_var_ratio=ratio)
+        with span("scasml.guard"):
+            return self._guarded_u(out, x_t, u_breve_half=u_half,
+                                   num_valid=num_valid, probe_var_ratio=ratio)
 
 
 ScaSML_full_history = ScaSMLFullHistory

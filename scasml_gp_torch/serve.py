@@ -22,6 +22,15 @@ On a CUDA device every (endpoint, bucket) runs as a captured CUDA graph
 /solve through its solver's graphs, /predict and /gradient through the
 server's own, keyed by (endpoint, bucket) within the GP's trained state.
 ``warmup`` captures them before the first request.
+
+A request's stretches are spans (utils/profiling.py): ``serve.request``
+around it and, inside it, ``serve.pad`` (checks and padding),
+``serve.lock`` (the wait for the lock), per chunk ``serve.copy_in``,
+``serve.compute`` and ``serve.fetch`` (the copy back, which waits for the
+device), and ``serve.gather``.  ``stats()`` (GET /stats) reads the server's
+counters: ``endpoint_seconds`` is service time (padding and compute, as
+before the lock wait was split off), ``lock_wait_seconds`` the wait for the
+lock behind other requests.
 """
 
 from __future__ import annotations
@@ -40,6 +49,7 @@ import torch
 from scasml_gp_torch.config import GPConfig
 from scasml_gp_torch.gp.state import GPState, load_state, save_state
 from scasml_gp_torch.picard import graphs
+from scasml_gp_torch.utils.profiling import span
 
 
 def save_surrogate(path: str, gp) -> None:
@@ -126,34 +136,57 @@ class SurrogateServer:
         self.solve_seed = int(solve_seed)
         self.requests = 0
         self.rows = 0
-        self.endpoint_seconds = {}
+        self.rows_computed = 0  # bucket rows, padding included
+        self.endpoint_seconds = {}   # service time: padding and compute
+        self.lock_wait_seconds = {}  # the wait for the lock
         self._lock = threading.Lock()
         # /predict and /gradient captured per (endpoint, bucket) on the card
-        self._graphs = graphs.GraphCache()
+        self._graphs = graphs.GraphCache("serve")
+
+    def _pad(self, chunk: np.ndarray):
+        """(chunk padded to its bucket by repeating its last row, real rows,
+        bucket)."""
+        real = chunk.shape[0]
+        bucket = next(b for b in self.buckets if b >= real)
+        if bucket > real:
+            chunk = np.concatenate([chunk, np.repeat(chunk[-1:], bucket - real, axis=0)])
+        return chunk, real, bucket
 
     def _run_bucketed(self, endpoint, fn, x, out_cols):
-        x = np.asarray(x, np.float32)
-        if x.ndim != 2 or x.shape[1] != self.gp.n_input:
-            raise ValueError(f"expected (n, {self.gp.n_input}) points, got {x.shape}")
-        t0 = time.perf_counter()
-        n = x.shape[0]
-        cap = self.buckets[-1]
-        outs = [np.zeros((0, out_cols), np.float32)]  # an empty request
-        with self._lock:
-            for start in range(0, n, cap):
-                chunk = x[start:start + cap]
-                real = chunk.shape[0]
-                bucket = next(b for b in self.buckets if b >= real)
-                if bucket > real:
-                    chunk = np.concatenate(
-                        [chunk, np.repeat(chunk[-1:], bucket - real, axis=0)])
-                y = fn(torch.as_tensor(chunk, device=self.gp.device), real)
-                outs.append(y.detach().cpu().numpy().reshape(bucket, -1)[:real])
-            out = np.concatenate(outs, axis=0)[:n, :out_cols]
-            self.requests += 1
-            self.rows += n
-            self.endpoint_seconds[endpoint] = (
-                self.endpoint_seconds.get(endpoint, 0.0) + time.perf_counter() - t0)
+        with span("serve.request"):
+            with span("serve.pad"):
+                x = np.asarray(x, np.float32)
+                if x.ndim != 2 or x.shape[1] != self.gp.n_input:
+                    raise ValueError(f"expected (n, {self.gp.n_input}) points, got {x.shape}")
+                t_pad = time.perf_counter()
+                n = x.shape[0]
+                cap = self.buckets[-1]
+                chunks = [self._pad(x[start:start + cap]) for start in range(0, n, cap)]
+            outs = [np.zeros((0, out_cols), np.float32)]  # an empty request
+            t_wait = time.perf_counter()
+            with span("serve.lock"):
+                self._lock.acquire()
+            try:
+                t0 = time.perf_counter()
+                for chunk, real, bucket in chunks:
+                    with span("serve.copy_in"):
+                        xt = torch.as_tensor(chunk, device=self.gp.device)
+                    with span("serve.compute"):
+                        y = fn(xt, real)
+                    with span("serve.fetch"):
+                        outs.append(y.detach().cpu().numpy().reshape(bucket, -1)[:real])
+                with span("serve.gather"):
+                    out = np.concatenate(outs, axis=0)[:n, :out_cols]
+                self.requests += 1
+                self.rows += n
+                self.rows_computed += sum(bucket for _, _, bucket in chunks)
+                self.lock_wait_seconds[endpoint] = (
+                    self.lock_wait_seconds.get(endpoint, 0.0) + t0 - t_wait)
+                self.endpoint_seconds[endpoint] = (
+                    self.endpoint_seconds.get(endpoint, 0.0)
+                    + t_wait - t_pad + time.perf_counter() - t0)
+            finally:
+                self._lock.release()
         return out
 
     def _posterior(self, endpoint, fn):
@@ -211,7 +244,11 @@ class SurrogateServer:
             "requests": self.requests,
             "rows": self.rows,
             "buckets": list(self.buckets),
+            "rows_computed": self.rows_computed,
             "endpoint_seconds": dict(self.endpoint_seconds),
+            "lock_wait_seconds": dict(self.lock_wait_seconds),
+            "captures": self._graphs.captures,
+            "replays": self._graphs.replays,
         }
 
 

@@ -64,7 +64,7 @@ def stand_in_cache(made):
     def capture(run, x, gen, pool):
         made.append(StandIn(run, x, gen))
         return made[-1]
-    return graphs.GraphCache(capture)
+    return graphs.GraphCache("picard", capture)
 
 
 def counting_rollout(x, gen, params):

@@ -94,8 +94,10 @@ def test_bucketed_predict_matches_direct(trained_gp):
     x = _sample(eq, 3, 150)
     np.testing.assert_allclose(server.predict(x.numpy()), gp.predict(x).numpy(), atol=1e-6)
     st = server.stats()
-    assert st["requests"] == 2 and st["rows"] == 183
+    assert st["requests"] == 2 and st["rows"] == 183 and st["rows_computed"] == 64 + 128 + 64
     assert st["buckets"] == [64, 128] and set(st["endpoint_seconds"]) == {"predict"}
+    assert set(st["lock_wait_seconds"]) == {"predict"}
+    assert st["captures"] == st["replays"] == 0  # the CPU takes no graphs
 
 
 def test_gradient_endpoint(trained_gp):
