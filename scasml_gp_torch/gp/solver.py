@@ -9,14 +9,20 @@ minimised by damped Newton with the analytic Hessian, an 8-way backtracking
 line search and the reference's damping schedule.  (K + nugget I)^{-1} is
 formed once, so each step is matrix products, one 3N x 3N solve and
 elementwise work.  The step loop is a Python loop whose stop/accept/damping
-state stays in device tensors: it makes no host sync.  Past
+state stays in device tensors.  Its one host sync a step is the solve's:
+the Newton matrix is symmetric, and positive definite in most steps, so
+``spd_first_solve`` factors it by Cholesky and reads one flag vector (a
+matrix's ``info``) to find the steps it must solve again by pivoted LU.  The
+parity modes solve every step by pivoted LU, as the reference does.  Past
 ``GPConfig.dense_phi_max`` training goes to the dual-CG trainer of
 gp/distributed.py instead.
 
 A train's stretches are spans (utils/profiling.py): ``train.gram``,
 ``train.factor``, ``train.newton`` around the step loop, inside it each
-step's 3N x 3N solve ``train.newton_solve``, and ``train.answer`` (the
-closing posterior mean).
+step's 3N x 3N solve ``train.newton_solve`` and within that the LU
+fallback ``train.newton_lu``, and ``train.answer`` (the closing posterior
+mean).  ``GP.newton_solves`` and ``GP.newton_lu_fallbacks`` count the
+matrices the Cholesky-first solve took and those it handed to LU.
 
 ``PrecisionPolicy.gram = 'bfloat16'`` computes the Gram's and the
 posterior's pair statistics from bf16-rounded points.  The parity modes
@@ -151,6 +157,35 @@ class SineForm(GPForm):
                 + (sig**2 / 2.0) * lap_u + torch.sin(u) + eq.forcing(x))
 
 
+def spd_first_solve(A: torch.Tensor, B: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    """(X, number of matrices solved by LU) with A X = B, for a symmetric A
+    (n, n) and B (n, k), or a batch A (R, n, n) and B (R, n, k).
+
+    Every matrix is factored by Cholesky and its solve queued before the
+    host reads anything, one call per matrix (``per_matrix`` says why); then
+    one device-to-host copy reads every factorization's ``info``.  A matrix
+    that is not positive definite (info != 0) is solved again by pivoted LU,
+    ``torch.linalg.solve_ex``, whose answer takes its slot: bitwise what
+    ``solve_ex`` alone gives it."""
+    L, info = per_matrix(torch.linalg.cholesky_ex, A)
+    X = per_matrix(torch.cholesky_solve, B, L)
+    bad = [i for i, flag in enumerate(info.reshape(-1).tolist()) if flag]
+    if bad:
+        with span("train.newton_lu"):
+            if A.dim() == 2:
+                X = torch.linalg.solve_ex(A, B)[0]
+            else:
+                for i in bad:
+                    X[i] = torch.linalg.solve_ex(A[i], B[i])[0]
+    return X, len(bad)
+
+
+def _lu_solve(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """X with A X = B by pivoted LU for every matrix: the parity modes'
+    Newton solve, as the reference's ``jnp.linalg.solve``."""
+    return per_matrix(torch.linalg.solve_ex, A, B)[0]
+
+
 class _TrainOut(NamedTuple):
     sol: torch.Tensor
     right_vector: torch.Tensor
@@ -196,6 +231,10 @@ class GP:
         self.nugget = cfg.nugget
         self.form: GPForm = self.form_cls(equation) if self.form_cls else None
         self.state: Optional[GPState] = None
+        # matrices the dense trainer's Newton steps solved, and of them those
+        # that were not positive definite and went to pivoted LU
+        self.newton_solves = 0
+        self.newton_lu_fallbacks = 0
         self.eval_chunk = cfg.eval_chunk or 4096
         self._subset = None
         self._posterior = posterior_eval
@@ -306,7 +345,16 @@ class GP:
         with span("train.factor"):
             _, C = regularized_factorization(K, nugget)
         del K
-        return self._newton_body(C, bdy_g, rhs, steps, damping, grad_tol, sol0)
+        return self._newton_body(C, bdy_g, rhs, steps, damping, grad_tol, sol0,
+                                 self._newton_solve)
+
+    def _newton_solve(self, H: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+        """``spd_first_solve``, counted in ``newton_solves`` and
+        ``newton_lu_fallbacks``."""
+        X, n_lu = spd_first_solve(H, B)
+        self.newton_solves += 1 if H.dim() == 2 else H.shape[0]
+        self.newton_lu_fallbacks += n_lu
+        return X
 
     def _initial_point(self, N: int, dev, sol0=None) -> torch.Tensor:
         """``sol0`` checked, or the Newton train's initial point drawn from a
@@ -340,13 +388,15 @@ class GP:
         _, C = parity_factorization(K, self.nugget, fp16)
         del K
         return self._newton_body(C, bdy_g, rhs, steps, cfg.damping, cfg.grad_tol,
-                                 self._initial_point(x_dom.shape[0], x_dom.device, sol0))
+                                 self._initial_point(x_dom.shape[0], x_dom.device, sol0),
+                                 _lu_solve)
 
     def _newton_body(self, C, bdy_g, rhs, steps, damping, grad_tol,
-                     sol0) -> _TrainOut:
+                     sol0, solve) -> _TrainOut:
         """Damped Newton from ``sol0`` on (K + nugget I)^{-1} = C, which may
         be a batch (R, phi, phi): each restart then takes its own line
-        search, damping and stop, and the outputs gain the axis R."""
+        search, damping and stop, and the outputs gain the axis R.
+        ``solve(H, B)`` solves each step's Newton system H X = B."""
         N = rhs.shape[0]
         Nb = bdy_g.shape[0]
         dev = C.device
@@ -414,8 +464,7 @@ class GP:
                 stop = done | (gnorm < grad_tol)
                 H = hess_of(sol, Cb) + damp[..., None, None] * eye
                 with span("train.newton_solve"):
-                    direction = per_matrix(torch.linalg.solve_ex, H,
-                                           -grad[..., :, None])[0][..., 0]
+                    direction = solve(H, -grad[..., :, None])[..., 0]
                 cand = sol[..., None, :] + alphas[:, None] * direction[..., None, :]
                 losses = losses_of(cand)
                 best = torch.argmin(losses, dim=-1, keepdim=True)

@@ -33,7 +33,7 @@
    start, peak and after.
 6. train: torch.profiler over one dense ``GP._train`` (1000 + 200 points,
    20 Newton steps) at d = 20 and d = 100, and over its pieces alone (the
-   Gram, the factorization, 20 ``solve_ex`` on the 3N x 3N Newton matrix):
+   Gram, the factorization, 20 Newton solves of the 3N x 3N matrix):
    device busy and idle time, each piece's share of the train's busy time,
    peak memory.
 7. fit: one round of ``--fit-ml``'s marginal-likelihood fit at d=20 with
@@ -283,10 +283,11 @@ def tune_ab(dev) -> list:
 def profile_train(dev) -> dict:
     """Part 6: one dense ``GP._train`` (1000 + 200 points, 20 Newton steps)
     at d = 20 and 100, and its pieces alone: the Gram, the factorization
-    and 20 ``solve_ex`` calls on a 3N x 3N matrix of the Newton step's kind
-    (2 C[z, z] + damping I); each piece's share of the train's device busy
-    time."""
+    and 20 ``spd_first_solve`` calls on a 3N x 3N matrix of the Newton
+    step's kind (2 C[z, z] + damping I, positive definite: the Cholesky
+    route); each piece's share of the train's device busy time."""
     from scasml_gp_torch.gp.gram import gram_matrix, regularized_factorization
+    from scasml_gp_torch.gp.solver import spd_first_solve
 
     out = {}
     for d in (D, 100):
@@ -309,7 +310,7 @@ def profile_train(dev) -> dict:
                                        cfg.damping, cfg.grad_tol),
             "gram": lambda: gram_matrix(x_dom, x_bdy, gamma, d),
             "factorization": lambda: regularized_factorization(K, cfg.nugget),
-            "solve_ex x20": lambda: [torch.linalg.solve_ex(H, g) for _ in range(20)],
+            "newton solve x20": lambda: [spd_first_solve(H, g) for _ in range(20)],
         }
         res = {k: profile_solve(f"train d={d}: {k}", fn, warm=1, reps=11)
                for k, fn in parts.items()}

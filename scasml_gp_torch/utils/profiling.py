@@ -48,11 +48,12 @@ SPANS: Dict[str, str] = {
     "picard.rollout": "recursion",
     "scasml.guard": "recursion",
     "scasml.u_hat": "recursion",
-    # gp/solver.py GPsolver, _train, _newton_body
+    # gp/solver.py GPsolver, _train, _newton_body, spd_first_solve
     "train.gram": "training",
     "train.factor": "training",
     "train.newton": "training",
     "train.newton_solve": "training",
+    "train.newton_lu": "training",
     "train.answer": "training",
 }
 

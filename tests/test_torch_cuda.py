@@ -224,10 +224,50 @@ def test_wide_kernel_factorization_matches_float64():
     sol0 = torch.randn((3000,), generator=torch.Generator(device=dev).manual_seed(0),
                        device=dev) * cfg.init_scale
     out = gp._newton_body(C64.float(), eq.g(x_bdy)[:, 0], gp.form.rhs_f(x_dom),
-                          cfg.gn_steps, cfg.damping, cfg.grad_tol, sol0)
+                          cfg.gn_steps, cfg.damping, cfg.grad_tol, sol0, gp._newton_solve)
     e64 = rel(posterior_block(x_test, x_dom, x_bdy, out.right_vector,
                               gp.state.gamma, 20, False, False).u[:, None])
     assert abs(e32 - e64) < 0.1 * e64, (e32, e64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ridge_scale, gamma_scale", [(300.0, 0.3), (0.0, 1.0)])
+def test_cholesky_first_train_within_the_state_gap_limit(ridge_scale, gamma_scale):
+    """At the train cell's size (d=20, N=1000 + 200), for a wide-ridge kernel
+    whose Newton matrices are often indefinite and for a ridge-0 one, the
+    train through the Cholesky-first Newton solve answers within 0.25 (the
+    cell's ``state_gap`` limit) of the float64 posterior from its own final
+    unknowns (weights C b(sol)), as a share of that posterior's root mean
+    square.  Prints how many of its Newton solves fell back to LU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import scasml_gp_torch as port
+    from scasml_gp_torch.gp.gram import gram_matrix, regularized_factorization
+
+    dev = torch.device("cuda", 0)
+    d, n = 20, 1000
+    eq = port.GradDependentNonlinear(n_input=d + 1)
+    x_dom, x_bdy = eq.generate_data(
+        n, 200, torch.Generator(device=dev).manual_seed(1234), device=dev)
+    cfg = port.GPConfig(ridge_scale=ridge_scale, gamma_scale=gamma_scale)
+    gp = port.GPGradDependentNonlinear(eq, cfg, device=dev)
+    u = gp.GPsolver(x_dom, x_bdy)[:, 0].double()
+    assert gp.newton_solves == cfg.gn_steps
+    print(f"[newton] ridge {ridge_scale} gamma {gamma_scale}: "
+          f"{gp.newton_lu_fallbacks} of {gp.newton_solves} solves fell back to LU")
+
+    sol = gp.state.sol.double()
+    z1, z3, z5 = sol[:n], sol[n:2 * n], sol[2 * n:]
+    b = torch.cat([z1, eq.g(x_bdy)[:, 0].double(), z3,
+                   gp.form.F(z1, z3, z5, gp.form.rhs_f(x_dom).double()), z5])
+    gamma = gp.state.gamma.double()
+    xd, xb = x_dom.double(), x_bdy.double()
+    _, C = regularized_factorization(gram_matrix(xd, xb, gamma, d, torch.float64),
+                                     cfg.nugget)
+    ref = posterior_block(xd, xd, xb, C @ b, gamma, d, False, False,
+                          operand_dtype=torch.float64).u
+    gap = float((u - ref).abs().max() / ref.pow(2).mean().sqrt())
+    assert gap < 0.25, gap
 
 
 @pytest.mark.cuda

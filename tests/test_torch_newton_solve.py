@@ -1,0 +1,135 @@
+"""The dense trainer's Newton solve (scasml_gp_torch.gp.solver
+``spd_first_solve``) on the CPU.
+
+A positive definite matrix is solved by Cholesky and agrees with pivoted LU
+(``torch.linalg.solve_ex``) to float32 rounding; a matrix that is not falls
+back to ``solve_ex`` and gets its answer bit for bit, in a batch only in its
+own slot.  ``GP.newton_solves`` and ``GP.newton_lu_fallbacks`` count what a
+train solved, and the parity modes solve every step by pivoted LU, never by
+the Cholesky-first route.
+"""
+
+import pytest
+import torch
+
+import scasml_gp_torch as port
+from scasml_gp_torch.gp import solver
+
+torch.set_num_threads(2)
+
+D, N_DOM, N_BDY, STEPS = 3, 40, 10, 3
+D_PARITY = 5  # the least d with a frozen Laplacian subset (gp/parity.py)
+n = 60
+
+
+def _symmetric(eigenvalues, seed):
+    gen = torch.Generator().manual_seed(seed)
+    q, _ = torch.linalg.qr(torch.randn((n, n), generator=gen))
+    A = (q * eigenvalues) @ q.T
+    return 0.5 * (A + A.T)
+
+
+def _spd(seed):
+    return _symmetric(torch.linspace(1.0, 10.0, n), seed)
+
+
+def _indefinite(seed):
+    ev = torch.linspace(1.0, 10.0, n)
+    ev[n // 2] = -3.0
+    return _symmetric(ev, seed)
+
+
+def _rhs(seed, batch=()):
+    return torch.randn(batch + (n, 1), generator=torch.Generator().manual_seed(seed))
+
+
+@pytest.mark.parametrize("case", ["spd", "indefinite", "batch_one_indefinite"])
+def test_spd_first_solve_routes(case):
+    if case == "spd":
+        A, B = _spd(0), _rhs(1)
+        X, n_lu = solver.spd_first_solve(A, B)
+        assert n_lu == 0
+        assert torch.equal(X, torch.cholesky_solve(B, torch.linalg.cholesky(A)))
+        torch.testing.assert_close(X, torch.linalg.solve_ex(A, B)[0], rtol=1e-5, atol=1e-6)
+    elif case == "indefinite":
+        A, B = _indefinite(0), _rhs(1)
+        assert int(torch.linalg.cholesky_ex(A)[1]) != 0
+        X, n_lu = solver.spd_first_solve(A, B)
+        assert n_lu == 1
+        assert torch.equal(X, torch.linalg.solve_ex(A, B)[0])
+    else:
+        A = torch.stack([_spd(0), _indefinite(1), _spd(2)])
+        B = _rhs(3, (3,))
+        X, n_lu = solver.spd_first_solve(A, B)
+        assert n_lu == 1
+        for i in range(3):
+            one, lu = solver.spd_first_solve(A[i], B[i])
+            assert lu == (i == 1)
+            assert torch.equal(X[i], one)
+        assert torch.equal(X[1], torch.linalg.solve_ex(A[1], B[1])[0])
+        assert torch.equal(X[0], torch.cholesky_solve(B[0], torch.linalg.cholesky(A[0])))
+
+
+def _problem(d):
+    eq = port.GradDependentNonlinear(n_input=d + 1)
+    return eq, eq.generate_data(N_DOM, N_BDY, torch.Generator().manual_seed(0))
+
+
+@pytest.fixture(scope="module")
+def problem():
+    return _problem(D)
+
+
+# "large": an initial point 3 000 times the default's scale, whose
+# residual's second-order term makes some Newton matrices indefinite
+@pytest.mark.parametrize("start", ["default", "large", "batch"])
+def test_train_counts_its_newton_solves(problem, start):
+    eq, (x_dom, x_bdy) = problem
+    gp = port.GPGradDependentNonlinear(eq, port.GPConfig(gn_steps=STEPS), device="cpu")
+    assert (gp.newton_solves, gp.newton_lu_fallbacks) == (0, 0)
+    if start == "batch":
+        gamma = torch.tensor([gp.gamma, gp.gamma], dtype=torch.float32)
+        out = gp._train(x_dom, x_bdy, eq.g(x_bdy)[:, 0], gp.form.rhs_f(x_dom), gamma,
+                        torch.tensor([gp.nugget, 10 * gp.nugget]), STEPS,
+                        gp.config.damping, gp.config.grad_tol)
+        assert out.sol.shape == (2, 3 * N_DOM)
+        assert gp.newton_solves == 2 * STEPS
+    else:
+        sol0 = None
+        if start == "large":
+            sol0 = 3.0 * torch.randn((3 * N_DOM,), generator=torch.Generator().manual_seed(1))
+        gp.GPsolver(x_dom, x_bdy, sol0=sol0)
+        assert gp.newton_solves == STEPS
+        gp.GPsolver(x_dom, x_bdy, sol0=sol0)
+        assert gp.newton_solves == 2 * STEPS
+    assert 0 <= gp.newton_lu_fallbacks <= gp.newton_solves
+    if start == "large":
+        assert gp.newton_lu_fallbacks > 0
+
+
+@pytest.mark.parametrize("mode", [dict(laplacian="subset"), dict(parity_fp16=True)],
+                         ids=["subset", "fp16"])
+def test_parity_train_solves_by_lu(monkeypatch, mode):
+    eq, (x_dom, x_bdy) = _problem(D_PARITY)
+    cfg = port.GPConfig(gn_steps=STEPS, **mode)
+
+    def train():
+        gp = port.GPGradDependentNonlinear(eq, cfg, device="cpu")
+        gp.GPsolver(x_dom, x_bdy)
+        return gp
+
+    def refuse(*a):
+        raise AssertionError("a parity train called the Cholesky-first solve")
+
+    with monkeypatch.context() as m:
+        m.setattr(solver, "spd_first_solve", refuse)
+        gp = train()
+    assert (gp.newton_solves, gp.newton_lu_fallbacks) == (0, 0)
+    # every step's direction as the Newton step computed it before the
+    # Cholesky-first solve: solve_ex, one call per matrix
+    with monkeypatch.context() as m:
+        m.setattr(solver, "_lu_solve", lambda H, B: solver.per_matrix(
+            torch.linalg.solve_ex, H, B)[0])
+        want = train()
+    for name in ("sol", "right_vector", "loss_history"):
+        assert torch.equal(getattr(gp.state, name), getattr(want.state, name)), name

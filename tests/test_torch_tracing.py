@@ -5,7 +5,7 @@ With tracing off a span is one shared no-op and enters no
 spans nest inside its ``serve.request`` in the order the server runs them,
 a /solve's recursion spans nest inside its ``serve.compute``, and a train's
 spans come in the trainer's order with one ``train.newton_solve`` a Newton
-step.  The server's counters follow its bucket rows and a graph cache's
+step, holding a ``train.newton_lu`` for each step that fell back to LU.  The server's counters follow its bucket rows and a graph cache's
 follow its calls, and every span the package opens is declared in
 ``SPANS``.
 """
@@ -127,13 +127,25 @@ def test_solve_spans_nest_inside_compute(trained):
 
 def test_train_spans_one_newton_solve_a_step(trained):
     eq, gp = trained
-    fresh = port.GPGradDependentNonlinear(eq, port.GPConfig(gn_steps=STEPS), device="cpu")
-    spans = _spans(lambda: fresh.GPsolver(gp.state.x_dom, gp.state.x_bdy))
-    top = [s[0] for s in spans if s[0] != "train.newton_solve"]
-    assert top == ["train.gram", "train.factor", "train.newton", "train.answer"]
-    (newton,) = [s for s in spans if s[0] == "train.newton"]
-    solves = [s for s in spans if s[0] == "train.newton_solve"]
-    assert len(solves) == STEPS and _inside(spans, newton) == solves
+    x_dom, x_bdy = gp.state.x_dom, gp.state.x_bdy
+    # the default initial point, and one far enough out that some Newton
+    # matrices are indefinite and fall back to LU (train.newton_lu)
+    large = 3.0 * torch.randn((3 * x_dom.shape[0],), generator=torch.Generator().manual_seed(1))
+    lu_spans = 0
+    for sol0 in (None, large):
+        fresh = port.GPGradDependentNonlinear(eq, port.GPConfig(gn_steps=STEPS), device="cpu")
+        spans = _spans(lambda: fresh.GPsolver(x_dom, x_bdy, sol0=sol0))
+        top = [s[0] for s in spans if s[0] not in ("train.newton_solve", "train.newton_lu")]
+        assert top == ["train.gram", "train.factor", "train.newton", "train.answer"]
+        (newton,) = [s for s in spans if s[0] == "train.newton"]
+        solves = [s for s in spans if s[0] == "train.newton_solve"]
+        lus = [s for s in spans if s[0] == "train.newton_lu"]
+        assert len(solves) == STEPS
+        assert _inside(spans, newton) == sorted(solves + lus, key=lambda s: s[1])
+        assert all(any(_inside([lu], solve) for solve in solves) for lu in lus)
+        assert len(lus) == fresh.newton_lu_fallbacks
+        lu_spans += len(lus)
+    assert lu_spans > 0
 
 
 def test_serve_counters_count_bucket_rows(trained):
