@@ -9,12 +9,19 @@ minimised by damped Newton with the analytic Hessian, an 8-way backtracking
 line search and the reference's damping schedule.  (K + nugget I)^{-1} is
 formed once, so each step is matrix products, one 3N x 3N solve and
 elementwise work.  The step loop is a Python loop whose stop/accept/damping
-state stays in device tensors.  Its one host sync a step is the solve's:
-the Newton matrix is symmetric, and positive definite in most steps, so
-``spd_first_solve`` factors it by Cholesky and reads one flag vector (a
-matrix's ``info``) to find the steps it must solve again by pivoted LU.  The
-parity modes solve every step by pivoted LU, as the reference does.  Past
-``GPConfig.dense_phi_max`` training goes to the dual-CG trainer of
+state stays in device tensors.  The Newton matrix is symmetric, and positive
+definite in most steps, so each step factors it by Cholesky
+(``PendingSolve``) and copies the factorization's flag vector (a matrix's
+``info``) to pinned host memory without waiting.  In a single train the
+host reads step k's flags only once step k's line search and step k+1's
+Hessian are queued, so the card has work while it waits; where potrf
+failed, step k's line search runs again from the pivoted-LU directions and
+step k+1's Hessian is rebuilt (the discarded work runs and is dropped).
+Every accepted path runs the same operations as reading the flags at once
+(``spd_first_solve``), so the train is bitwise the same.  The last step,
+and every step of a batch of restarts, reads at once.  The parity modes
+solve every step by pivoted LU, as the reference does, and never defer.
+Past ``GPConfig.dense_phi_max`` training goes to the dual-CG trainer of
 gp/distributed.py instead.
 
 A train's stretches are spans (utils/profiling.py): ``train.gram``,
@@ -22,7 +29,10 @@ A train's stretches are spans (utils/profiling.py): ``train.gram``,
 step's 3N x 3N solve ``train.newton_solve`` and within that the LU
 fallback ``train.newton_lu``, and ``train.answer`` (the closing posterior
 mean).  ``GP.newton_solves`` and ``GP.newton_lu_fallbacks`` count the
-matrices the Cholesky-first solve took and those it handed to LU.
+matrices the Cholesky-first solve took and those it handed to LU;
+``GP.newton_deferred_reads`` the steps whose flags were read behind the next
+step's Hessian, and ``GP.newton_redos`` those of them redone because potrf
+failed.
 
 ``PrecisionPolicy.gram = 'bfloat16'`` computes the Gram's and the
 posterior's pair statistics from bf16-rounded points.  The parity modes
@@ -157,27 +167,54 @@ class SineForm(GPForm):
                 + (sig**2 / 2.0) * lap_u + torch.sin(u) + eq.forcing(x))
 
 
-def spd_first_solve(A: torch.Tensor, B: torch.Tensor) -> Tuple[torch.Tensor, int]:
-    """(X, number of matrices solved by LU) with A X = B, for a symmetric A
-    (n, n) and B (n, k), or a batch A (R, n, n) and B (R, n, k).
+class PendingSolve:
+    """A Cholesky-first solve of A X = B whose flags the host has not read:
+    for a symmetric A (n, n) and B (n, k), or a batch A (R, n, n) and B
+    (R, n, k), every matrix's potrf, a copy of the factorizations' ``info``
+    to pinned host memory with an event behind it, and every potrs are
+    queued, one call per matrix (``per_matrix`` says why); nothing waits.
+    ``X`` holds the Cholesky answers; ``result()`` reads the flags."""
 
-    Every matrix is factored by Cholesky and its solve queued before the
-    host reads anything, one call per matrix (``per_matrix`` says why); then
-    one device-to-host copy reads every factorization's ``info``.  A matrix
-    that is not positive definite (info != 0) is solved again by pivoted LU,
-    ``torch.linalg.solve_ex``, whose answer takes its slot: bitwise what
-    ``solve_ex`` alone gives it."""
-    L, info = per_matrix(torch.linalg.cholesky_ex, A)
-    X = per_matrix(torch.cholesky_solve, B, L)
-    bad = [i for i, flag in enumerate(info.reshape(-1).tolist()) if flag]
-    if bad:
-        with span("train.newton_lu"):
-            if A.dim() == 2:
-                X = torch.linalg.solve_ex(A, B)[0]
-            else:
-                for i in bad:
-                    X[i] = torch.linalg.solve_ex(A[i], B[i])[0]
-    return X, len(bad)
+    def __init__(self, A: torch.Tensor, B: torch.Tensor):
+        self.A, self.B = A, B
+        L, info = per_matrix(torch.linalg.cholesky_ex, A)
+        self._ready = None
+        if info.is_cuda:
+            # the copy runs on the stream of info's card, which need not be
+            # the current one (a mesh rank trains on cuda:<LOCAL_RANK>): the
+            # event goes behind it there
+            with torch.cuda.device(info.device):
+                self._info = torch.empty(info.shape, dtype=info.dtype, pin_memory=True)
+                self._info.copy_(info, non_blocking=True)
+                self._ready = torch.cuda.Event()
+                self._ready.record()
+        else:
+            self._info = info
+        self.X = per_matrix(torch.cholesky_solve, B, L)
+
+    def result(self) -> Tuple[torch.Tensor, int]:
+        """(X, number of matrices solved by LU): waits for the flags; a
+        matrix that is not positive definite (info != 0) is solved again by
+        pivoted LU, ``torch.linalg.solve_ex``, whose answer takes its slot of
+        ``X``: bitwise what ``solve_ex`` alone gives it."""
+        if self._ready is not None:
+            self._ready.synchronize()
+        bad = [i for i, flag in enumerate(self._info.reshape(-1).tolist()) if flag]
+        X = self.X
+        if bad:
+            with span("train.newton_lu"):
+                if self.A.dim() == 2:
+                    X = torch.linalg.solve_ex(self.A, self.B)[0]
+                else:
+                    for i in bad:
+                        X[i] = torch.linalg.solve_ex(self.A[i], self.B[i])[0]
+        return X, len(bad)
+
+
+def spd_first_solve(A: torch.Tensor, B: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    """(X, number of matrices solved by LU) with A X = B: the
+    ``PendingSolve`` of A and B, its flags read at once."""
+    return PendingSolve(A, B).result()
 
 
 def _lu_solve(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
@@ -235,6 +272,10 @@ class GP:
         # that were not positive definite and went to pivoted LU
         self.newton_solves = 0
         self.newton_lu_fallbacks = 0
+        # steps whose flags were read behind the next step's Hessian, and of
+        # them those redone because potrf failed
+        self.newton_deferred_reads = 0
+        self.newton_redos = 0
         self.eval_chunk = cfg.eval_chunk or 4096
         self._subset = None
         self._posterior = posterior_eval
@@ -348,13 +389,11 @@ class GP:
         return self._newton_body(C, bdy_g, rhs, steps, damping, grad_tol, sol0,
                                  self._newton_solve)
 
-    def _newton_solve(self, H: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
-        """``spd_first_solve``, counted in ``newton_solves`` and
-        ``newton_lu_fallbacks``."""
-        X, n_lu = spd_first_solve(H, B)
+    def _newton_solve(self, H: torch.Tensor, B: torch.Tensor) -> PendingSolve:
+        """The Cholesky-first solve, queued, counted in ``newton_solves``;
+        ``_newton_body`` reads its flags and counts the fallbacks."""
         self.newton_solves += 1 if H.dim() == 2 else H.shape[0]
-        self.newton_lu_fallbacks += n_lu
-        return X
+        return PendingSolve(H, B)
 
     def _initial_point(self, N: int, dev, sol0=None) -> torch.Tensor:
         """``sol0`` checked, or the Newton train's initial point drawn from a
@@ -396,7 +435,15 @@ class GP:
         """Damped Newton from ``sol0`` on (K + nugget I)^{-1} = C, which may
         be a batch (R, phi, phi): each restart then takes its own line
         search, damping and stop, and the outputs gain the axis R.
-        ``solve(H, B)`` solves each step's Newton system H X = B."""
+        ``solve(H, B)`` solves each step's Newton system H X = B and returns
+        X, or a ``PendingSolve``: for one train step k's flags are then
+        read after step k's line search and step k+1's Hessian are queued,
+        and where potrf failed both are computed again from the state before
+        the line search (the last step reads at once).  A batch reads each
+        step's flags at once: one restart's failed potrf would redo every
+        restart's line search and Hessian, and the batch's kernels keep the
+        card busy while the host launches them (PERF.md §6).  Either way the
+        train is the one that reading the flags at once gives."""
         N = rhs.shape[0]
         Nb = bdy_g.shape[0]
         dev = C.device
@@ -454,31 +501,68 @@ class GP:
         done = torch.zeros(batch, dtype=torch.bool, device=dev)
         gnorm_last = torch.zeros(batch, dtype=torch.float32, device=dev)
         damp = torch.full(batch, damping, dtype=torch.float32, device=dev)
+        state = (sol, J, damp, done, gnorm_last)
+
+        def system(state):
+            """A step's Newton matrix, gradient, gradient norm and stop flags."""
+            sol, _, damp, done, _ = state
+            b = b_of(sol)
+            Cb = per_matrix(torch.mv, C, b)
+            grad = grad_of(sol, Cb)
+            gnorm = torch.linalg.vector_norm(grad, dim=-1)
+            stop = done | (gnorm < grad_tol)
+            H = hess_of(sol, Cb) + damp[..., None, None] * eye
+            return H, grad, gnorm, stop
+
+        def advance(step, state, gnorm, stop, X):
+            """The state after ``step``'s line search along the directions X
+            (..., 3N, 1), which writes its loss into ``hist``."""
+            sol, J, damp, done, gnorm_last = state
+            cand = sol[..., None, :] + alphas[:, None] * X[..., None, :, 0]
+            losses = losses_of(cand)
+            best = torch.argmin(losses, dim=-1, keepdim=True)
+            best_loss = losses.gather(-1, best)[..., 0]
+            best_sol = cand.gather(-2, best[..., None].expand(batch + (1, 3 * N)))[..., 0, :]
+            improved = best_loss < J
+            accept = improved & ~stop
+            sol = torch.where(accept[..., None], best_sol, sol)
+            J = torch.where(accept, best_loss, J)
+            damp = torch.where(improved, torch.clamp_min(damp * 0.1, damping),
+                               torch.clamp_max(damp * 10.0, 1.0))
+            hist[..., step + 1] = J
+            gnorm_last = torch.where(done, gnorm_last, gnorm)
+            return sol, J, damp, stop, gnorm_last
+
+        def read(pending):
+            """A PendingSolve's X, and whether potrf failed for any matrix."""
+            X, n_lu = pending.result()
+            self.newton_lu_fallbacks += n_lu
+            return X, n_lu > 0
 
         with span("train.newton"):
+            # the previous step's (state before its line search, gradient
+            # norm, stop flags, PendingSolve) while its flags are unread
+            late = None
             for step in range(steps):
-                b = b_of(sol)
-                Cb = per_matrix(torch.mv, C, b)
-                grad = grad_of(sol, Cb)
-                gnorm = torch.linalg.vector_norm(grad, dim=-1)
-                stop = done | (gnorm < grad_tol)
-                H = hess_of(sol, Cb) + damp[..., None, None] * eye
+                H, grad, gnorm, stop = system(state)
                 with span("train.newton_solve"):
-                    direction = solve(H, -grad[..., :, None])[..., 0]
-                cand = sol[..., None, :] + alphas[:, None] * direction[..., None, :]
-                losses = losses_of(cand)
-                best = torch.argmin(losses, dim=-1, keepdim=True)
-                best_loss = losses.gather(-1, best)[..., 0]
-                best_sol = cand.gather(-2, best[..., None].expand(batch + (1, 3 * N)))[..., 0, :]
-                improved = best_loss < J
-                accept = improved & ~stop
-                sol = torch.where(accept[..., None], best_sol, sol)
-                J = torch.where(accept, best_loss, J)
-                damp = torch.where(improved, torch.clamp_min(damp * 0.1, damping),
-                                   torch.clamp_max(damp * 10.0, 1.0))
-                hist[..., step + 1] = J
-                gnorm_last = torch.where(done, gnorm_last, gnorm)
-                done = stop
+                    if late is not None:
+                        before, late_gnorm, late_stop, pending = late
+                        late = None
+                        self.newton_deferred_reads += 1
+                        X, failed = read(pending)
+                        if failed:  # the last step again, from its LU directions
+                            self.newton_redos += 1
+                            state = advance(step - 1, before, late_gnorm, late_stop, X)
+                            H, grad, gnorm, stop = system(state)
+                    X = solve(H, -grad[..., :, None])
+                    if isinstance(X, PendingSolve):
+                        if step + 1 < steps and not batch:
+                            late, X = (state, gnorm, stop, X), X.X
+                        else:  # a batch, or no next Hessian to read behind
+                            X, _ = read(X)
+                state = advance(step, state, gnorm, stop, X)
+        sol, gnorm_last = state[0], state[4]
 
         right_vector = per_matrix(torch.mv, C, b_of(sol))
         return _TrainOut(sol=sol, right_vector=right_vector, loss_history=hist,

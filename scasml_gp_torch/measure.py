@@ -32,16 +32,18 @@
    eager): host-clock seconds and the device memory allocated over the
    start, peak and after.
 6. train: torch.profiler over one dense ``GP._train`` (1000 + 200 points,
-   20 Newton steps) at d = 20 and d = 100, and over its pieces alone (the
-   Gram, the factorization, 20 Newton solves of the 3N x 3N matrix):
-   device busy and idle time, each piece's share of the train's busy time,
+   20 Newton steps) at d = 20 and d = 100, as it runs (each step's
+   Cholesky flags read behind the next step's Hessian) and with every
+   step's flags read at once, and over its pieces alone (the Gram, the
+   factorization, 20 Newton solves of the 3N x 3N matrix): device busy and
+   idle time of both trains, each piece's share of the train's busy time,
    peak memory.
 7. fit: one round of ``--fit-ml``'s marginal-likelihood fit at d=20 with
    its 6 restarts: one Adam step looped over the restarts, batched eagerly
-   and batched as a replayed CUDA graph; the batched Newton train against 6
-   single trains (busy, idle, peak memory of each); the library's batched
-   Cholesky, Cholesky inverse and 3N x 3N solve against one call per matrix
-   at the fit's shapes.
+   and batched as a replayed CUDA graph; the batched Newton train (and its
+   counters) against 6 single trains (busy, idle, peak memory of each); the
+   library's batched Cholesky, Cholesky inverse and 3N x 3N solve against
+   one call per matrix at the fit's shapes.
 8. bf16: at the full-history, Sine d=100 and high_dim d=250 calls
    (BF16_SHAPES; GPs trained on 1000 + 200 rows at d = 20, 100 and 250), the
    bf16-operand variant's device time beside the float32 kernel's on the
@@ -282,7 +284,9 @@ def tune_ab(dev) -> list:
 
 def profile_train(dev) -> dict:
     """Part 6: one dense ``GP._train`` (1000 + 200 points, 20 Newton steps)
-    at d = 20 and 100, and its pieces alone: the Gram, the factorization
+    at d = 20 and 100, as it runs (each step's flags read behind the next
+    step's Hessian) and with every step's flags read at once
+    (``spd_first_solve``), and its pieces alone: the Gram, the factorization
     and 20 ``spd_first_solve`` calls on a 3N x 3N matrix of the Newton
     step's kind (2 C[z, z] + damping I, positive definite: the Cholesky
     route); each piece's share of the train's device busy time."""
@@ -296,6 +300,8 @@ def profile_train(dev) -> dict:
             N_DOM, N_BDY, torch.Generator(device=dev).manual_seed(1234), device=dev)
         cfg = port.GPConfig(gn_steps=20)
         gp = port.GPGradDependentNonlinear(eq, cfg, device=dev)
+        at_once = port.GPGradDependentNonlinear(eq, cfg, device=dev)
+        at_once._newton_solve = lambda H, B: spd_first_solve(H, B)[0]
         bdy_g, rhs = eq.g(x_bdy)[:, 0], gp.form.rhs_f(x_dom)
         gamma = torch.tensor(gp.gamma, dtype=torch.float32, device=dev)
         K = gram_matrix(x_dom, x_bdy, gamma, d)
@@ -308,6 +314,8 @@ def profile_train(dev) -> dict:
         parts = {
             "train": lambda: gp._train(x_dom, x_bdy, bdy_g, rhs, gamma, cfg.nugget, 20,
                                        cfg.damping, cfg.grad_tol),
+            "train, flags read at once": lambda: at_once._train(
+                x_dom, x_bdy, bdy_g, rhs, gamma, cfg.nugget, 20, cfg.damping, cfg.grad_tol),
             "gram": lambda: gram_matrix(x_dom, x_bdy, gamma, d),
             "factorization": lambda: regularized_factorization(K, cfg.nugget),
             "newton solve x20": lambda: [spd_first_solve(H, g) for _ in range(20)],
@@ -316,12 +324,19 @@ def profile_train(dev) -> dict:
                for k, fn in parts.items()}
         busy = res["train"]["device_busy_ms"]
         res["shares_of_train_busy"] = {k: res[k]["device_busy_ms"] / busy
-                                       for k in parts if k != "train"}
-        print(f"[train] d={d}: device busy {busy:.3f} ms of wall "
-              f"{res['train']['wall_ms_median']:.3f} ms (idle share "
-              f"{res['train']['device_idle_share']:.3f}); shares of the busy time: "
-              + ", ".join(f"{k} {v:.3f}" for k, v in res["shares_of_train_busy"].items()),
-              flush=True)
+                                       for k in parts if not k.startswith("train")}
+        for k in ("train", "train, flags read at once"):
+            print(f"[train] d={d}, {k}: device busy {res[k]['device_busy_ms']:.3f} ms of "
+                  f"wall {res[k]['wall_ms_median']:.3f} ms (idle share "
+                  f"{res[k]['device_idle_share']:.3f}, idle "
+                  f"{res[k]['wall_ms_median'] - res[k]['device_busy_ms']:.3f} ms)", flush=True)
+        res["newton_deferred_reads"] = gp.newton_deferred_reads
+        res["newton_redos"] = gp.newton_redos
+        res["trains"] = gp.newton_solves // 20
+        print(f"[train] d={d}: shares of the busy time: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in res["shares_of_train_busy"].items())
+              + f"; over {res['trains']} trains {res['newton_deferred_reads']} deferred "
+              f"reads, {res['newton_redos']} redone", flush=True)
         out[f"d{d}"] = res
     return out
 
@@ -332,9 +347,10 @@ def profile_fit(dev) -> dict:
     its jittered twin): one Adam step of all restarts looped (one
     torch.optim.Adam per restart, the fit before the restart axis), batched
     eagerly and batched as a replayed graph; 6 single Newton trains and the
-    batched train; the library's batched Cholesky, Cholesky inverse and
-    3N x 3N solve against one call per matrix (gram.per_matrix) at the fit's
-    shapes, with the largest difference of their results.  A checkout from
+    batched train and its counters; the library's batched Cholesky,
+    Cholesky inverse and 3N x 3N solve against one call per matrix
+    (gram.per_matrix) at the fit's shapes, with the largest difference of
+    their results.  A checkout from
     before the restart axis gives the looped step and the single trains."""
     from scasml_gp_torch.gp import marginal as pm
 
@@ -342,7 +358,7 @@ def profile_fit(dev) -> dict:
     x_dom, x_bdy = eq.generate_data(
         N_DOM, N_BDY, torch.Generator(device=dev).manual_seed(1234), device=dev)
     base = port.GPConfig()
-    gp = port.GPGradDependentNonlinear(eq, base, device=dev)
+    gp, counted = (port.GPGradDependentNonlinear(eq, base, device=dev) for _ in range(2))
     bdy_g, rhs = eq.g(x_bdy)[:, 0], gp.form.rhs_f(x_dom)
     sigma = float(eq.sigma())
     theta0 = [pm._params_to_theta(1.0, 1.0, rs, base.nugget) for rs in (0.0, 3.0, 10.0, 30.0)]
@@ -393,16 +409,23 @@ def profile_fit(dev) -> dict:
             f"fit: one Adam step, {R} restarts batched, graphed", adam.graph.replay, warm=1)
     finally:
         adam.close()
+    def batched(g):
+        return lambda: pm._train_latents(g, theta0, x_dom, x_bdy, bdy_g, rhs, sigma,
+                                         base.gn_steps, base)
+
     out["train_batched"] = profile_solve(
-        f"fit: batched Newton train of {R} restarts", lambda: pm._train_latents(
-            gp, theta0, x_dom, x_bdy, bdy_g, rhs, sigma, base.gn_steps, base), reps=5)
+        f"fit: batched Newton train of {R} restarts", batched(gp), reps=5)
+    batched(counted)()
+    out["newton"] = {k: getattr(counted, k) for k in (
+        "newton_solves", "newton_lu_fallbacks", "newton_deferred_reads", "newton_redos")}
     print(f"[fit] one Adam step of {R} restarts: looped "
           f"{out['step_looped']['wall_ms_median']:.3f} ms, batched eager "
           f"{out['step_batched_eager']['wall_ms_median']:.3f} ms, graphed "
           f"{out['step_batched_graphed']['wall_ms_median']:.3f} ms (capture call "
           f"{out['capture_call_ms']:.3f} ms); train batched "
           f"{out['train_batched']['wall_ms_median']:.3f} ms, {R} single "
-          f"{out['train_single_x6']['wall_ms_median']:.3f} ms", flush=True)
+          f"{out['train_single_x6']['wall_ms_median']:.3f} ms; one batched train: "
+          + ", ".join(f"{k} {v}" for k, v in out["newton"].items()), flush=True)
 
     # the libraries' batched routes at the fit's shapes, against the one
     # call per matrix that gram.per_matrix makes

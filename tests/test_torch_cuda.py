@@ -270,6 +270,83 @@ def test_cholesky_first_train_within_the_state_gap_limit(ridge_scale, gamma_scal
     assert gap < 0.25, gap
 
 
+def _deferred_and_synchronous_trains(dev, ridge_scale, gamma_scale, sync_debug=False):
+    """The Newton loop at the train cell's size (d=20, N=1000 + 200) on the
+    card ``dev``, run with each step's Cholesky flags read behind the next
+    step's Hessian and with them read at once: (gp, the deferred train, the
+    synchronous train, the deferred train's PendingSolves).  With
+    ``sync_debug`` the deferred train runs under
+    ``torch.cuda.set_sync_debug_mode("error")``."""
+    import scasml_gp_torch as port
+    from scasml_gp_torch.gp.gram import gram_matrix, regularized_factorization
+    from scasml_gp_torch.gp.solver import spd_first_solve
+
+    d, n = 20, 1000
+    eq = port.GradDependentNonlinear(n_input=d + 1)
+    x_dom, x_bdy = eq.generate_data(
+        n, 200, torch.Generator(device=dev).manual_seed(1234), device=dev)
+    cfg = port.GPConfig(ridge_scale=ridge_scale, gamma_scale=gamma_scale)
+    gp = port.GPGradDependentNonlinear(eq, cfg, device=dev)
+    gamma = torch.tensor(gp.gamma, dtype=torch.float32, device=dev)
+    _, C = regularized_factorization(gram_matrix(x_dom, x_bdy, gamma, d), cfg.nugget)
+    args = (C, eq.g(x_bdy)[:, 0], gp.form.rhs_f(x_dom), cfg.gn_steps, cfg.damping,
+            cfg.grad_tol, gp._initial_point(n, dev))
+    want = gp._newton_body(*args, lambda H, B: spd_first_solve(H, B)[0])
+    pendings = []
+
+    def solve(H, B):
+        pendings.append(gp._newton_solve(H, B))
+        return pendings[-1]
+
+    torch.cuda.synchronize(dev)
+    if sync_debug:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = gp._newton_body(*args, solve)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for name in ("sol", "right_vector", "loss_history", "grad_norm"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    assert gp.newton_deferred_reads == cfg.gn_steps - 1
+    print(f"[newton] {dev} ridge {ridge_scale} gamma {gamma_scale}: {gp.newton_redos} of "
+          f"{gp.newton_deferred_reads} deferred reads redone, "
+          f"{gp.newton_lu_fallbacks} of {gp.newton_solves} solves by LU")
+    return gp, got, want, pendings
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ridge_scale, gamma_scale", [(0.0, 1.0), (300.0, 0.3)])
+def test_deferred_flag_reads_train_bitwise(ridge_scale, gamma_scale):
+    """At the train cell's size (d=20, N=1000 + 200), the Newton loop that
+    reads each step's Cholesky flags behind the next step's Hessian trains
+    bit for bit as the loop that reads them at once, for a ridge-0 kernel and
+    for a wide-ridge one whose steps often fall back to LU (and are redone).
+    At ridge 0 the step loop drains no stream (no ``.item()``, no pageable
+    copy): it runs under ``torch.cuda.set_sync_debug_mode("error")``; the
+    host waits only on each flag copy's event, which that mode does not
+    see."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    _, _, _, pendings = _deferred_and_synchronous_trains(
+        dev, ridge_scale, gamma_scale, sync_debug=ridge_scale == 0.0)
+    assert all(p._ready.device == dev for p in pendings)
+
+
+@pytest.mark.cuda
+def test_deferred_flag_reads_on_a_card_that_is_not_current():
+    """A mesh rank trains on cuda:<LOCAL_RANK> without making it the current
+    card: the flags' event goes behind the copy on the card that trains, not
+    on the current card's stream, and the train is bitwise the synchronous
+    one there."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    dev = torch.device("cuda", torch.cuda.device_count() - 1)
+    assert torch.cuda.current_device() != dev.index
+    _, _, _, pendings = _deferred_and_synchronous_trains(dev, 300.0, 0.3)
+    assert pendings and all(p._ready.device == dev for p in pendings)
+
+
 @pytest.mark.cuda
 def test_rbf_terminal_fit_matches_float64():
     """The coarse rbf Cole-Hopf surrogate for HJB at d=100 (m = 1000 + 200

@@ -133,3 +133,91 @@ def test_parity_train_solves_by_lu(monkeypatch, mode):
         want = train()
     for name in ("sol", "right_vector", "loss_history"):
         assert torch.equal(getattr(gp.state, name), getattr(want.state, name)), name
+
+
+# (start, potrf failures forced as (step, restart), steps redone): the
+# Newton loop that reads each step's flags behind the next step's Hessian
+# against the one that reads them at once.  The "large" start's failures
+# are its own; the synchronous loop says at which steps.  A batch reads
+# every step's flags at once, so it defers and redoes nothing.
+LATE_STEPS = 4
+DEFERRED_CASES = {
+    "default": (None, (), 0),
+    "large": ("large", (), None),
+    "batch_one_restart_fails": ("batch", ((1, 1),), 0),
+    "fails_at_step_0": (None, ((0, 0),), 1),
+    "fails_twice_in_a_row": (None, ((1, 0), (2, 0)), 2),
+    "fails_at_the_last_step": (None, ((LATE_STEPS - 1, 0),), 0),
+}
+
+
+@pytest.mark.parametrize("case", list(DEFERRED_CASES))
+def test_deferred_flag_reads_train_as_the_synchronous_loop(problem, monkeypatch, case):
+    from scasml_gp_torch.gp.gram import gram_matrix, regularized_factorization
+
+    start, forced, redos = DEFERRED_CASES[case]
+    eq, (x_dom, x_bdy) = problem
+    cfg = port.GPConfig(gn_steps=LATE_STEPS)
+    gp, sync_gp = (port.GPGradDependentNonlinear(eq, cfg, device="cpu") for _ in range(2))
+    R = 2 if start == "batch" else 1
+    gamma = torch.tensor([gp.gamma] * R, dtype=torch.float32)
+    nugget = torch.tensor([gp.nugget, 10 * gp.nugget][:R])
+    if R == 1:
+        gamma, nugget = gamma[0], float(nugget[0])
+    _, C = regularized_factorization(gram_matrix(x_dom, x_bdy, gamma, D), nugget)
+    sol0 = None
+    if start == "large":
+        sol0 = 3.0 * torch.randn((3 * N_DOM,), generator=torch.Generator().manual_seed(1))
+    sol0 = gp._initial_point(N_DOM, x_dom.device, sol0)
+    args = (C, eq.g(x_bdy)[:, 0], gp.form.rhs_f(x_dom), LATE_STEPS, cfg.damping,
+            cfg.grad_tol, sol0)
+
+    # potrf reports a failure on the chosen calls: one call per matrix, step
+    # by step, in the same order on both routes
+    fail_calls = {step * R + r for step, r in forced}
+    cholesky_ex = torch.linalg.cholesky_ex
+
+    def train(target, solve):
+        calls = iter(range(10**6))
+
+        def flagged(A):
+            L, info = cholesky_ex(A)
+            return L, (torch.ones_like(info) if next(calls) in fail_calls else info)
+
+        with monkeypatch.context() as m:
+            m.setattr(torch.linalg, "cholesky_ex", flagged)
+            return target._newton_body(*args, solve)
+
+    lu_steps = []  # matrices each step of the synchronous loop solved by LU
+
+    def at_once(H, B):
+        X, n_lu = solver.spd_first_solve(H, B)
+        lu_steps.append(n_lu)
+        return X
+
+    want = train(sync_gp, at_once)
+    got = train(gp, gp._newton_solve)
+    for name in ("sol", "right_vector", "loss_history", "grad_norm"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+
+    assert len(lu_steps) == LATE_STEPS
+    if forced:
+        assert lu_steps == [sum(s == step for s, _ in forced) for step in range(LATE_STEPS)]
+    if redos is None:
+        redos = sum(1 for n_lu in lu_steps[:-1] if n_lu)
+        assert redos > 0
+    assert gp.newton_solves == R * LATE_STEPS
+    assert gp.newton_lu_fallbacks == sum(lu_steps)
+    assert gp.newton_deferred_reads == (LATE_STEPS - 1 if R == 1 else 0)
+    assert gp.newton_redos == redos
+    assert (sync_gp.newton_solves, sync_gp.newton_lu_fallbacks,
+            sync_gp.newton_deferred_reads, sync_gp.newton_redos) == (0, 0, 0, 0)
+
+
+@pytest.mark.parametrize("mode", [dict(laplacian="subset"), dict(parity_fp16=True)],
+                         ids=["subset", "fp16"])
+def test_parity_train_reads_no_flags_late(mode):
+    eq, (x_dom, x_bdy) = _problem(D_PARITY)
+    gp = port.GPGradDependentNonlinear(eq, port.GPConfig(gn_steps=STEPS, **mode), device="cpu")
+    gp.GPsolver(x_dom, x_bdy)
+    assert (gp.newton_deferred_reads, gp.newton_redos) == (0, 0)
