@@ -8,7 +8,9 @@ Port of ``scasml_gp_tpu/gp/solver.py``.  The loss is
 minimised by damped Newton with the analytic Hessian, an 8-way backtracking
 line search and the reference's damping schedule.  (K + nugget I)^{-1} is
 formed once, so each step is matrix products, one 3N x 3N solve and
-elementwise work.  The step loop is a Python loop whose stop/accept/damping
+elementwise work; a step's gradient and Newton matrix come from C's rows at
+the unknowns, gathered once a train (``_unknowns_rows``), one broadcast a
+term.  The step loop is a Python loop whose stop/accept/damping
 state stays in device tensors.  The Newton matrix is symmetric, and positive
 definite in most steps, so each step factors it by Cholesky
 (``PendingSolve``) and copies the factorization's flag vector (a matrix's
@@ -221,6 +223,39 @@ def _lu_solve(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     """X with A X = B by pivoted LU for every matrix: the parity modes'
     Newton solve, as the reference's ``jnp.linalg.solve``."""
     return per_matrix(torch.linalg.solve_ex, A, B)[0]
+
+
+def _unknowns_rows(C: torch.Tensor, N: int, Nb: int) -> tuple:
+    """Where the unknowns z = (z1, z3, z5) sit among the rows of
+    b = [z1, bdy, z3, F, z5], and the rows of C (or of a batch (R, phi, phi))
+    that a Newton step reads, gathered once a train: (z, b's rows of F,
+    C[z, z], C[z, F], C[F, z], C[F, F]), z (3N,) in sol's order."""
+    z = torch.cat([torch.arange(s, s + N, device=C.device) for s in (0, N + Nb, 3 * N + Nb)])
+    F = slice(2 * N + Nb, 3 * N + Nb)
+    return (z, F, C.index_select(-2, z).index_select(-1, z), C[..., F].index_select(-2, z),
+            C[..., F, :].index_select(-1, z), C[..., F, F])
+
+
+def _newton_system(form: GPForm, rows: tuple, sol: torch.Tensor,
+                   Cb: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(gradient (..., 3N), undamped Newton matrix (..., 3N, 3N)) of
+    b(sol)^T C b(sol) at ``sol`` (..., 3N), with Cb = C b(sol) and ``rows``
+    from ``_unknowns_rows``.  Block (a, b) is 2 (C_ab + f_a C_Fb + C_aF f_b
+    + f_a C_FF f_b + D_ab), f = dF and D the diagonals of
+    ``form.d2F_contraction``, each element summed in that order."""
+    z, F, Czz, Cz4, C4z, C44 = rows
+    lead, N = sol.shape[:-1], sol.shape[-1] // 3
+    z1, z3, z5 = sol[..., :N], sol[..., N:2 * N], sol[..., 2 * N:]
+    f = torch.cat(form.dF(z1, z3, z5), dim=-1).view(lead + (3, N))
+    r4 = Cb[..., F]
+    grad = 2.0 * (Cb.index_select(-1, z) + (f * r4[..., None, :]).flatten(-2))
+    H = Czz.unflatten(-2, (3, N)) + f[..., None] * C4z[..., None, :, :]
+    H.view(lead + (3 * N, 3, N)).add_(Cz4[..., None, :] * f[..., None, :, :])
+    H = H.view(lead + (3, N, 3, N))
+    H.add_((f[..., None, None] * C44[..., None, :, None, :]) * f[..., None, None, :, :])
+    for (a, b), w in form.d2F_contraction(r4, z1, z3, z5).items():
+        H[..., a, :, b, :].diagonal(dim1=-2, dim2=-1).add_(w)
+    return grad, 2.0 * H.view(lead + (3 * N, 3 * N))
 
 
 class _TrainOut(NamedTuple):
@@ -448,45 +483,13 @@ class GP:
         Nb = bdy_g.shape[0]
         dev = C.device
         batch = C.shape[:-2]
-        # Row sets of b = [z1 (R1), bdy (R2), z3 (R3), F (R4), z5 (R5)].
-        i1, i2, i3, i4 = N, N + Nb, 2 * N + Nb, 3 * N + Nb
-        grp_rows = {0: (0, i1), 1: (i2, i3), 2: (i4, 4 * N + Nb)}
-        C44 = C[..., i3:i4, i3:i4]
+        rows = _unknowns_rows(C, N, Nb)
         form = self.form
 
         def b_of(sol):  # sol (..., 3N) -> b (..., phi)
             z1, z3, z5 = sol[..., :N], sol[..., N:2 * N], sol[..., 2 * N:]
             g = bdy_g.expand(sol.shape[:-1] + (Nb,))
             return torch.cat([z1, g, z3, form.F(z1, z3, z5, rhs), z5], dim=-1)
-
-        def grad_of(sol, Cb):
-            z1, z3, z5 = sol[..., :N], sol[..., N:2 * N], sol[..., 2 * N:]
-            f1, f3, f5 = form.dF(z1, z3, z5)
-            r4 = Cb[..., i3:i4]
-            return 2.0 * torch.cat([Cb[..., :i1] + f1 * r4, Cb[..., i2:i3] + f3 * r4,
-                                    Cb[..., i4:] + f5 * r4], dim=-1)
-
-        def hess_of(sol, Cb):
-            z1, z3, z5 = sol[..., :N], sol[..., N:2 * N], sol[..., 2 * N:]
-            fs = form.dF(z1, z3, z5)
-            d2 = form.d2F_contraction(Cb[..., i3:i4], z1, z3, z5)
-            rows = []
-            for a in range(3):
-                ra0, ra1 = grp_rows[a]
-                row = []
-                for bg in range(3):
-                    rb0, rb1 = grp_rows[bg]
-                    blk = (
-                        C[..., ra0:ra1, rb0:rb1]
-                        + fs[a][..., :, None] * C[..., i3:i4, rb0:rb1]
-                        + C[..., ra0:ra1, i3:i4] * fs[bg][..., None, :]
-                        + fs[a][..., :, None] * C44 * fs[bg][..., None, :]
-                    )
-                    if (a, bg) in d2:
-                        blk = blk + torch.diag_embed(d2[(a, bg)])
-                    row.append(blk)
-                rows.append(torch.cat(row, dim=-1))
-            return 2.0 * torch.cat(rows, dim=-2)
 
         def losses_of(sols):  # (..., k, 3N) -> (..., k)
             B = b_of(sols)
@@ -506,13 +509,11 @@ class GP:
         def system(state):
             """A step's Newton matrix, gradient, gradient norm and stop flags."""
             sol, _, damp, done, _ = state
-            b = b_of(sol)
-            Cb = per_matrix(torch.mv, C, b)
-            grad = grad_of(sol, Cb)
+            Cb = per_matrix(torch.mv, C, b_of(sol))
+            grad, H = _newton_system(form, rows, sol, Cb)
             gnorm = torch.linalg.vector_norm(grad, dim=-1)
             stop = done | (gnorm < grad_tol)
-            H = hess_of(sol, Cb) + damp[..., None, None] * eye
-            return H, grad, gnorm, stop
+            return H + damp[..., None, None] * eye, grad, gnorm, stop
 
         def advance(step, state, gnorm, stop, X):
             """The state after ``step``'s line search along the directions X

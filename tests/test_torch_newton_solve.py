@@ -6,7 +6,8 @@ A positive definite matrix is solved by Cholesky and agrees with pivoted LU
 back to ``solve_ex`` and gets its answer bit for bit, in a batch only in its
 own slot.  ``GP.newton_solves`` and ``GP.newton_lu_fallbacks`` count what a
 train solved, and the parity modes solve every step by pivoted LU, never by
-the Cholesky-first route.
+the Cholesky-first route.  A step's gradient and Newton matrix
+(``_newton_system``) are the loss's own derivatives.
 """
 
 import pytest
@@ -221,3 +222,46 @@ def test_parity_train_reads_no_flags_late(mode):
     gp = port.GPGradDependentNonlinear(eq, port.GPConfig(gn_steps=STEPS, **mode), device="cpu")
     gp.GPsolver(x_dom, x_bdy)
     assert (gp.newton_deferred_reads, gp.newton_redos) == (0, 0)
+
+
+# the three forms' F, dF and d2F_contraction against autograd, in float64
+FORMS = {
+    "grad_dependent": (solver.GradDependentForm, port.GradDependentNonlinear),
+    "allen_cahn": (solver.AllenCahnForm, port.AllenCahn),
+    "sine": (solver.SineForm, port.SineNonlinear),
+}
+
+
+@pytest.mark.parametrize("R", [None, 2], ids=["single", "batch"])
+@pytest.mark.parametrize("family", list(FORMS))
+def test_newton_system_is_the_loss_gradient_and_hessian(family, R):
+    form_cls, eq_cls = FORMS[family]
+    form = form_cls(eq_cls(n_input=D + 1))
+    N, Nb = 12, 4
+    phi = 4 * N + Nb
+    gen = torch.Generator().manual_seed(0)
+    batch = () if R is None else (R,)
+    A = torch.randn(batch + (phi, phi), generator=gen, dtype=torch.float64)
+    C = A @ A.mT / phi + torch.eye(phi, dtype=torch.float64)
+    sol = torch.randn(batch + (3 * N,), generator=gen, dtype=torch.float64)
+    bdy_g = torch.randn((Nb,), generator=gen, dtype=torch.float64)
+    rhs = torch.randn((N,), generator=gen, dtype=torch.float64)
+
+    def b_of(s):
+        z1, z3, z5 = s[:N], s[N:2 * N], s[2 * N:]
+        return torch.cat([z1, bdy_g, z3, form.F(z1, z3, z5, rhs), z5])
+
+    Cb = torch.stack([C_r @ b_of(s) for C_r, s in zip(C.reshape(-1, phi, phi),
+                                                      sol.reshape(-1, 3 * N))])
+    grad, H = solver._newton_system(form, solver._unknowns_rows(C, N, Nb), sol,
+                                    Cb.reshape(batch + (phi,)))
+    assert grad.shape == batch + (3 * N,) and H.shape == batch + (3 * N, 3 * N)
+    for r, (C_r, s) in enumerate(zip(C.reshape(-1, phi, phi), sol.reshape(-1, 3 * N))):
+        def loss(x):
+            b = b_of(x)
+            return b @ C_r @ b
+
+        want_grad = torch.autograd.functional.jacobian(loss, s)
+        want_H = torch.autograd.functional.hessian(loss, s)
+        torch.testing.assert_close(grad.reshape(-1, 3 * N)[r], want_grad, rtol=1e-10, atol=1e-12)
+        torch.testing.assert_close(H.reshape(-1, 3 * N, 3 * N)[r], want_H, rtol=1e-10, atol=1e-12)
