@@ -17,12 +17,15 @@ definite in most steps, so each step factors it by Cholesky
 ``info``) to pinned host memory without waiting.  In a single train the
 host reads step k's flags only once step k's line search and step k+1's
 Hessian are queued, so the card has work while it waits; where potrf
-failed, step k's line search runs again from the pivoted-LU directions and
-step k+1's Hessian is rebuilt (the discarded work runs and is dropped).
+failed, step k's line search runs again from the LU directions and step
+k+1's Hessian is rebuilt (the discarded work runs and is dropped).
 Every accepted path runs the same operations as reading the flags at once
 (``spd_first_solve``), so the train is bitwise the same.  The last step,
 and every step of a batch of restarts, reads at once.  The parity modes
 solve every step by pivoted LU, as the reference does, and never defer.
+Elsewhere a matrix that potrf refuses is solved by LU without pivoting of
+its Jacobi-scaled form (``nopivot_solve``), whose answer is kept where its
+backward error passes a gate, else by pivoted LU.
 Past ``GPConfig.dense_phi_max`` training goes to the dual-CG trainer of
 gp/distributed.py instead.
 
@@ -31,7 +34,9 @@ A train's stretches are spans (utils/profiling.py): ``train.gram``,
 step's 3N x 3N solve ``train.newton_solve`` and within that the LU
 fallback ``train.newton_lu``, and ``train.answer`` (the closing posterior
 mean).  ``GP.newton_solves`` and ``GP.newton_lu_fallbacks`` count the
-matrices the Cholesky-first solve took and those it handed to LU;
+matrices the Cholesky-first solve took and those it handed to LU, and
+``GP.newton_nopivot_solves`` and ``GP.newton_pivoted_solves`` split the
+latter into those the no-pivot LU's gate accepted and those it rejected;
 ``GP.newton_deferred_reads`` the steps whose flags were read behind the next
 step's Hessian, and ``GP.newton_redos`` those of them redone because potrf
 failed.
@@ -169,6 +174,81 @@ class SineForm(GPForm):
                 + (sig**2 / 2.0) * lap_u + torch.sin(u) + eq.forcing(x))
 
 
+# a no-pivot LU answer X of H X = B is kept when its backward error
+# |H X - B| / (|H|_F |X| + |B|), in float32, is at most this: about 40x the
+# worst either LU read on the Newton matrices of the train cell that potrf
+# refused (PERF.md §6)
+NOPIVOT_BACKWARD_ERROR = 1e-7
+
+
+class _HostFlags:
+    """A small device tensor copied to pinned host memory without waiting,
+    with an event behind the copy; ``read()`` waits for the event only.  On
+    the CPU the tensor itself."""
+
+    def __init__(self, flags: torch.Tensor):
+        self._ready = None
+        if flags.is_cuda:
+            # the copy runs on the stream of the flags' card, which need not
+            # be the current one (a mesh rank trains on cuda:<LOCAL_RANK>):
+            # the event goes behind it there
+            with torch.cuda.device(flags.device):
+                self._host = torch.empty(flags.shape, dtype=flags.dtype, pin_memory=True)
+                self._host.copy_(flags, non_blocking=True)
+                self._ready = torch.cuda.Event()
+                self._ready.record()
+        else:
+            self._host = flags
+
+    def read(self) -> list:
+        if self._ready is not None:
+            self._ready.synchronize()
+        return self._host.reshape(-1).tolist()
+
+
+def _lu_nopivot_cpu(A: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(LU, info) of A (n, n) by LU without pivoting, in LAPACK's packed
+    form (unit L below the diagonal, U on and above it) and with its
+    ``info`` (1 + the first zero pivot's index, else 0): a blocked
+    right-looking LU for the CPU, where ``lu_factor``'s ``pivot=False``
+    does not exist."""
+    LU = A.clone()
+    n, block = LU.shape[-1], 64
+    for k in range(0, n, block):
+        e = min(k + block, n)
+        for j in range(k, e):  # the panel, column by column
+            LU[j + 1:, j] /= LU[j, j]
+            LU[j + 1:, j + 1:e] -= LU[j + 1:, j, None] * LU[j, j + 1:e]
+        if e < n:
+            LU[k:e, e:] = torch.linalg.solve_triangular(LU[k:e, k:e], LU[k:e, e:],
+                                                        upper=False, unitriangular=True)
+            LU[e:, e:] -= LU[e:, k:e] @ LU[k:e, e:]
+    zero = LU.diagonal() == 0
+    info = torch.where(zero.any(), zero.int().argmax() + 1, 0).int()
+    return LU, info
+
+
+def nopivot_solve(A: torch.Tensor, B: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(X, accepted) for A (n, n) and B (n, k), computed on A's device
+    without waiting: X = S Y with (S A S) Y = S B solved by LU without
+    pivoting, S = |diag A|^-1/2 (Jacobi scaling), and ``accepted`` a bool
+    tensor: getrf's ``info`` is 0, X is finite and its backward error is at
+    most ``NOPIVOT_BACKWARD_ERROR``.  On the card the LU is cuSOLVER's getrf
+    without pivots (``lu_factor_ex(pivot=False)``); on the CPU
+    ``_lu_nopivot_cpu``."""
+    s = torch.rsqrt(torch.clamp_min(A.diagonal().abs(), torch.finfo(A.dtype).tiny))
+    As = s[:, None] * A * s
+    if A.device.type == "cpu":
+        LU, info = _lu_nopivot_cpu(As)
+    else:
+        LU, _, info = torch.linalg.lu_factor_ex(As, pivot=False)
+    Y = torch.linalg.solve_triangular(LU, s[:, None] * B, upper=False, unitriangular=True)
+    X = s[:, None] * torch.linalg.solve_triangular(LU, Y, upper=True)
+    norm = torch.linalg.vector_norm
+    error = norm(A @ X - B) / (norm(A) * norm(X) + norm(B))
+    return X, (info == 0) & torch.isfinite(X).all() & (error <= NOPIVOT_BACKWARD_ERROR)
+
+
 class PendingSolve:
     """A Cholesky-first solve of A X = B whose flags the host has not read:
     for a symmetric A (n, n) and B (n, k), or a batch A (R, n, n) and B
@@ -180,42 +260,40 @@ class PendingSolve:
     def __init__(self, A: torch.Tensor, B: torch.Tensor):
         self.A, self.B = A, B
         L, info = per_matrix(torch.linalg.cholesky_ex, A)
-        self._ready = None
-        if info.is_cuda:
-            # the copy runs on the stream of info's card, which need not be
-            # the current one (a mesh rank trains on cuda:<LOCAL_RANK>): the
-            # event goes behind it there
-            with torch.cuda.device(info.device):
-                self._info = torch.empty(info.shape, dtype=info.dtype, pin_memory=True)
-                self._info.copy_(info, non_blocking=True)
-                self._ready = torch.cuda.Event()
-                self._ready.record()
-        else:
-            self._info = info
+        self._info = _HostFlags(info)
         self.X = per_matrix(torch.cholesky_solve, B, L)
 
-    def result(self) -> Tuple[torch.Tensor, int]:
-        """(X, number of matrices solved by LU): waits for the flags; a
-        matrix that is not positive definite (info != 0) is solved again by
-        pivoted LU, ``torch.linalg.solve_ex``, whose answer takes its slot of
-        ``X``: bitwise what ``solve_ex`` alone gives it."""
-        if self._ready is not None:
-            self._ready.synchronize()
-        bad = [i for i, flag in enumerate(self._info.reshape(-1).tolist()) if flag]
+    def result(self) -> Tuple[torch.Tensor, int, int]:
+        """(X, matrices whose potrf failed, of them those solved by pivoted
+        LU): waits for the flags.  A matrix that is not positive definite
+        (info != 0) is solved again by ``nopivot_solve``, and the host waits
+        once more, for its acceptance; a matrix it rejects is solved by
+        pivoted LU, ``torch.linalg.solve_ex``, bitwise what ``solve_ex``
+        alone gives it.  Either answer takes the matrix's slot of ``X``."""
+        bad = [i for i, flag in enumerate(self._info.read()) if flag]
         X = self.X
+        pivoted = 0
         if bad:
             with span("train.newton_lu"):
                 if self.A.dim() == 2:
-                    X = torch.linalg.solve_ex(self.A, self.B)[0]
+                    X, ok = nopivot_solve(self.A, self.B)
+                    if not _HostFlags(ok).read()[0]:
+                        X, pivoted = torch.linalg.solve_ex(self.A, self.B)[0], 1
                 else:
-                    for i in bad:
-                        X[i] = torch.linalg.solve_ex(self.A[i], self.B[i])[0]
-        return X, len(bad)
+                    outs = [nopivot_solve(self.A[i], self.B[i]) for i in bad]
+                    for i, (x, _) in zip(bad, outs):
+                        X[i] = x
+                    accepted = _HostFlags(torch.stack([ok for _, ok in outs])).read()
+                    for i, ok in zip(bad, accepted):
+                        if not ok:
+                            X[i] = torch.linalg.solve_ex(self.A[i], self.B[i])[0]
+                            pivoted += 1
+        return X, len(bad), pivoted
 
 
-def spd_first_solve(A: torch.Tensor, B: torch.Tensor) -> Tuple[torch.Tensor, int]:
-    """(X, number of matrices solved by LU) with A X = B: the
-    ``PendingSolve`` of A and B, its flags read at once."""
+def spd_first_solve(A: torch.Tensor, B: torch.Tensor) -> Tuple[torch.Tensor, int, int]:
+    """(X, matrices whose potrf failed, of them those solved by pivoted LU)
+    with A X = B: the ``PendingSolve`` of A and B, its flags read at once."""
     return PendingSolve(A, B).result()
 
 
@@ -304,9 +382,13 @@ class GP:
         self.form: GPForm = self.form_cls(equation) if self.form_cls else None
         self.state: Optional[GPState] = None
         # matrices the dense trainer's Newton steps solved, and of them those
-        # that were not positive definite and went to pivoted LU
+        # that were not positive definite and went to LU
         self.newton_solves = 0
         self.newton_lu_fallbacks = 0
+        # of the fallbacks, those the no-pivot LU's gate accepted, and those
+        # it sent to pivoted LU (``PendingSolve.result``)
+        self.newton_nopivot_solves = 0
+        self.newton_pivoted_solves = 0
         # steps whose flags were read behind the next step's Hessian, and of
         # them those redone because potrf failed
         self.newton_deferred_reads = 0
@@ -536,8 +618,10 @@ class GP:
 
         def read(pending):
             """A PendingSolve's X, and whether potrf failed for any matrix."""
-            X, n_lu = pending.result()
+            X, n_lu, pivoted = pending.result()
             self.newton_lu_fallbacks += n_lu
+            self.newton_nopivot_solves += n_lu - pivoted
+            self.newton_pivoted_solves += pivoted
             return X, n_lu > 0
 
         with span("train.newton"):

@@ -417,7 +417,8 @@ def profile_fit(dev) -> dict:
         f"fit: batched Newton train of {R} restarts", batched(gp), reps=5)
     batched(counted)()
     out["newton"] = {k: getattr(counted, k) for k in (
-        "newton_solves", "newton_lu_fallbacks", "newton_deferred_reads", "newton_redos")}
+        "newton_solves", "newton_lu_fallbacks", "newton_nopivot_solves",
+        "newton_pivoted_solves", "newton_deferred_reads", "newton_redos")}
     print(f"[fit] one Adam step of {R} restarts: looped "
           f"{out['step_looped']['wall_ms_median']:.3f} ms, batched eager "
           f"{out['step_batched_eager']['wall_ms_median']:.3f} ms, graphed "

@@ -230,6 +230,52 @@ def test_wide_kernel_factorization_matches_float64():
     assert abs(e32 - e64) < 0.1 * e64, (e32, e64)
 
 
+def _event_ms(fn, reps=10):
+    """The median over ``reps`` calls of ``fn``'s time on the card between
+    two CUDA events, after one warm call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return sorted(times)[reps // 2]
+
+
+def _fallback_timings(H, B):
+    """Device ms at one Newton matrix that potrf refuses (n = 3N): potrf,
+    pivoted LU (``solve_ex``), the no-pivot route with its gate
+    (``nopivot_solve``), and, as a yardstick only, the symmetric-indefinite
+    LDL^T (``ldl_factor_ex`` + ``ldl_solve``), which the port never calls;
+    and the host-clock ms of the whole fallback as a train pays it
+    (``spd_first_solve``: the failed potrf and potrs, the no-pivot route,
+    the gate's read)."""
+    import time
+
+    from scasml_gp_torch.gp.solver import nopivot_solve, spd_first_solve
+
+    def ldl():
+        LD, piv, _ = torch.linalg.ldl_factor_ex(H)
+        return torch.linalg.ldl_solve(LD, piv, B)
+
+    out = {"potrf": _event_ms(lambda: torch.linalg.cholesky_ex(H)),
+           "solve_ex": _event_ms(lambda: torch.linalg.solve_ex(H, B)),
+           "nopivot_solve": _event_ms(lambda: nopivot_solve(H, B)),
+           "ldl (yardstick)": _event_ms(ldl)}
+    host = []
+    for _ in range(11):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        spd_first_solve(H, B)
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+    out["spd_first_solve (host clock)"] = sorted(host)[5]
+    return out
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("ridge_scale, gamma_scale", [(300.0, 0.3), (0.0, 1.0)])
 def test_cholesky_first_train_within_the_state_gap_limit(ridge_scale, gamma_scale):
@@ -238,11 +284,17 @@ def test_cholesky_first_train_within_the_state_gap_limit(ridge_scale, gamma_scal
     train through the Cholesky-first Newton solve answers within 0.25 (the
     cell's ``state_gap`` limit) of the float64 posterior from its own final
     unknowns (weights C b(sol)), as a share of that posterior's root mean
-    square.  Prints how many of its Newton solves fell back to LU."""
+    square.  Every matrix potrf refused went to the no-pivot route, which
+    ran cuSOLVER's getrf without pivots (``lu_factor_ex(pivot=False)``,
+    info 0 on the Jacobi-scaled matrix); at the wide ridge the gate accepted
+    each one.  Prints how many of its Newton solves fell back to LU, how
+    the gate split them, and at the wide ridge the fallback's timings
+    (``_fallback_timings``)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     import scasml_gp_torch as port
     from scasml_gp_torch.gp.gram import gram_matrix, regularized_factorization
+    from scasml_gp_torch.gp.solver import nopivot_solve
 
     dev = torch.device("cuda", 0)
     d, n = 20, 1000
@@ -251,10 +303,34 @@ def test_cholesky_first_train_within_the_state_gap_limit(ridge_scale, gamma_scal
         n, 200, torch.Generator(device=dev).manual_seed(1234), device=dev)
     cfg = port.GPConfig(ridge_scale=ridge_scale, gamma_scale=gamma_scale)
     gp = port.GPGradDependentNonlinear(eq, cfg, device=dev)
+    pendings = []
+    newton_solve = gp._newton_solve
+    gp._newton_solve = lambda H, B: pendings.append(newton_solve(H, B)) or pendings[-1]
     u = gp.GPsolver(x_dom, x_bdy)[:, 0].double()
     assert gp.newton_solves == cfg.gn_steps
+    assert gp.newton_nopivot_solves + gp.newton_pivoted_solves == gp.newton_lu_fallbacks
     print(f"[newton] ridge {ridge_scale} gamma {gamma_scale}: "
-          f"{gp.newton_lu_fallbacks} of {gp.newton_solves} solves fell back to LU")
+          f"{gp.newton_lu_fallbacks} of {gp.newton_solves} solves fell back to LU, "
+          f"{gp.newton_nopivot_solves} without pivoting, {gp.newton_pivoted_solves} pivoted")
+
+    refused = [(p.A, p.B) for p in pendings if int(torch.linalg.cholesky_ex(p.A)[1])]
+    assert len(refused) == gp.newton_lu_fallbacks
+    for H, B in refused:
+        s = torch.rsqrt(torch.clamp_min(H.diagonal().abs(), torch.finfo(H.dtype).tiny))
+        assert int(torch.linalg.lu_factor_ex(s[:, None] * H * s, pivot=False)[2]) == 0
+    assert sum(bool(nopivot_solve(H, B)[1]) for H, B in refused) == gp.newton_nopivot_solves
+    if ridge_scale == 300.0:
+        assert gp.newton_lu_fallbacks > 0 and gp.newton_pivoted_solves == 0
+        H, B = refused[0]
+        acts = [torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            nopivot_solve(H, B)
+            torch.cuda.synchronize()
+        names = sorted({e.key for e in prof.key_averages()})
+        print(f"[newton] n = {H.shape[0]}, the no-pivot route's device ops: {names}")
+        print(f"[newton] n = {H.shape[0]}, a refused Newton matrix, device ms (CUDA events, "
+              "median of 10): " + ", ".join(f"{k} {v:.3f}"
+                                            for k, v in _fallback_timings(H, B).items()))
 
     sol = gp.state.sol.double()
     z1, z3, z5 = sol[:n], sol[n:2 * n], sol[2 * n:]
@@ -308,9 +384,11 @@ def _deferred_and_synchronous_trains(dev, ridge_scale, gamma_scale, sync_debug=F
     for name in ("sol", "right_vector", "loss_history", "grad_norm"):
         assert torch.equal(getattr(got, name), getattr(want, name)), name
     assert gp.newton_deferred_reads == cfg.gn_steps - 1
+    assert gp.newton_nopivot_solves + gp.newton_pivoted_solves == gp.newton_lu_fallbacks
     print(f"[newton] {dev} ridge {ridge_scale} gamma {gamma_scale}: {gp.newton_redos} of "
           f"{gp.newton_deferred_reads} deferred reads redone, "
-          f"{gp.newton_lu_fallbacks} of {gp.newton_solves} solves by LU")
+          f"{gp.newton_lu_fallbacks} of {gp.newton_solves} solves by LU "
+          f"({gp.newton_nopivot_solves} without pivoting, {gp.newton_pivoted_solves} pivoted)")
     return gp, got, want, pendings
 
 
@@ -330,7 +408,7 @@ def test_deferred_flag_reads_train_bitwise(ridge_scale, gamma_scale):
     dev = torch.device("cuda", 0)
     _, _, _, pendings = _deferred_and_synchronous_trains(
         dev, ridge_scale, gamma_scale, sync_debug=ridge_scale == 0.0)
-    assert all(p._ready.device == dev for p in pendings)
+    assert all(p._info._ready.device == dev for p in pendings)
 
 
 @pytest.mark.cuda
@@ -344,7 +422,7 @@ def test_deferred_flag_reads_on_a_card_that_is_not_current():
     dev = torch.device("cuda", torch.cuda.device_count() - 1)
     assert torch.cuda.current_device() != dev.index
     _, _, _, pendings = _deferred_and_synchronous_trains(dev, 300.0, 0.3)
-    assert pendings and all(p._ready.device == dev for p in pendings)
+    assert pendings and all(p._info._ready.device == dev for p in pendings)
 
 
 @pytest.mark.cuda
